@@ -1,0 +1,44 @@
+"""Architecture registry of the PyTorch port.
+
+The port covers the architectures its slices have brought over; every
+other arch of the JAX package raises ``KeyError`` naming the ROADMAP item
+that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.tokenizer import get_tokenizer
+
+_ARCH_MODULES: Dict[str, str] = {
+    # The paper's own evaluation model: the dense GQA serving path.
+    "qwen3-4b-thinking": "repro_torch.configs.qwen3_4b_thinking",
+}
+
+# Archs of the JAX package not ported yet (ROADMAP A9: the arch zoo).
+_NOT_PORTED = (
+    "granite-20b", "internvl2-2b", "qwen3-1.7b", "mixtral-8x7b",
+    "zamba2-2.7b", "deepseek-v2-236b", "phi4-mini-3.8b", "mamba2-2.7b",
+    "starcoder2-3b", "seamless-m4t-large-v2",
+)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch in _NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet "
+                       f"(ROADMAP A9); ported: {sorted(_ARCH_MODULES)}")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(_ARCH_MODULES[arch])
+    return mod.smoke_config() if smoke else mod.full_config()
+
+
+def serving_config(arch: str = "qwen3-4b-thinking") -> ModelConfig:
+    """Smoke-scale config wired to the synthetic-task tokenizer, used by
+    the serving engine benchmarks (the model actually sampled from)."""
+    cfg = get_config(arch, smoke=True)
+    return dataclasses.replace(cfg, vocab_size=get_tokenizer().vocab_size)
+
