@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
   2. build    — nvcc builds every kernel from ``src/repro_torch/csrc``
                 (in parallel) and reports registers and spills;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
-                on the card, at the main path's full-width shapes;
+                on the card, at the main path's full-width shapes: the
+                paged kernel over bf16/f32 pools (K1a, K1b) and over
+                int8/fp8 pools (K1c), the scorer (K2), flash attention (K3);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
                 seeded weights) under memory pressure through
                 ``Engine.serve``, kernels on: launch counts, pruning, a
@@ -18,10 +20,17 @@ Phases, each printing one JSON line:
   5. batched  — four requests through ``Engine.serve_batch`` with chunked
                 prefill and the prefix cache: the prefill kernel face and
                 a prefix-cache hit;
-  6. times    — device time of each kernel, its plain version and the
+  6. serve_int8, serve_fp8 — the serve phase over a quantized pool, with
+                chunked prefill: both faces of K1c; then the int8 kernel
+                engine against the int8 dense engine at the smoke config;
+  7. forward_kernel — ``forward_full(use_kernel=True)`` at full width
+                against the dense forward: one K3 launch per layer;
+  8. train    — AdamW steps of ``make_train_step`` at full width, then
+                ``build_step_scorer`` and a STEP serve with that scorer;
+  9. times    — device time of each kernel, its plain version and the
                 library yardstick (one CUDA-graph replay per timed call,
                 cold L2), and each kernel's bound;
-  7. step     — one full-width decode iteration: eager wall time against
+ 10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay.
 
 The line before the last is the kernel table as one JSON object, the last
@@ -47,6 +56,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # one bf16 ulp of the output
 F32_TOL = dict(atol=1e-4, rtol=1e-4)    # summation order only
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 throughout
+QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 SEED = 0
 
 
@@ -94,6 +104,13 @@ def prefill_inputs(g, C, H, KVH, hd, bp, prefix, nvalid, dtype, page=16):
     return q, kp, vp, bt, pl, nv, ok, ov
 
 
+def quantize(kvq, kp, vp, kv_dtype):
+    """Float pools -> (k codes, v codes, k scales, v scales)."""
+    (kq, ks), (vq, vs) = (kvq.quantize_pages(x, QUANT[kv_dtype])
+                          for x in (kp, vp))
+    return kq, vq, ks, vs
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -127,7 +144,7 @@ def phase_build(ops):
     return seconds
 
 
-def phase_kernels(pa, ss):
+def phase_kernels(pa, ss, fa, kvq):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     H, KVH, hd, bp = 32, 8, 128, 32
     scale = 1.0 / math.sqrt(hd)
@@ -160,6 +177,53 @@ def phase_kernels(pa, ss):
                 errs[key] = max(errs.get(key, 0.0), compare(
                     f"K1b C={C} prefix={prefix} window={window} {dtype}",
                     got, want, tol))
+    # K1c: both faces over int8 and fp8 pools (f32 scales per slot), the
+    # same shapes and queries in bf16 and f32
+    for kv_dtype in QUANT:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                           (torch.float32, F32_TOL)):
+            q, kp, vp, bt, cl = decode_inputs(g, 64, H, KVH, hd, bp, lens,
+                                              torch.float32)
+            kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+            args = (q.to(dtype), kq, vq, bt, cl)
+            got = pa.paged_attention(*args, scale=scale, k_scale=ks,
+                                     v_scale=vs)
+            want = pa.paged_attention_plain(*args, scale, ks, vs)
+            torch.cuda.synchronize()
+            check(bool((got[0] == 0).all()), "K1c: empty-cache row not zero")
+            errs[f"decode_{kv_dtype}_{str(dtype)[6:]}"] = compare(
+                f"K1c decode {kv_dtype} {dtype}", got, want, tol)
+            for C, prefix, nvalid in ((16, 64, 16), (64, 200, 50)):
+                for window in (None, 128):
+                    q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
+                        g, C, H, KVH, hd, bp, prefix, nvalid, torch.float32)
+                    kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+                    args = (q.to(dtype), kq, vq, bt, pl, nv, ok.to(dtype),
+                            ov.to(dtype))
+                    got = pa.paged_attention_prefill(
+                        *args, scale=scale, window=window, k_scale=ks,
+                        v_scale=vs)
+                    want = pa.paged_attention_prefill_plain(
+                        *args, scale, window, ks, vs)
+                    torch.cuda.synchronize()
+                    key = f"prefill_{kv_dtype}_{str(dtype)[6:]}"
+                    errs[key] = max(errs.get(key, 0.0), compare(
+                        f"K1c prefill {kv_dtype} C={C} prefix={prefix} "
+                        f"window={window} {dtype}", got, want, tol))
+    # K3: B = 1, H = 32, S = 2048, hd = 128; causal, a window of 128, and
+    # non-causal
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        qkv = [torch.randn(1, H, 2048, hd, generator=g, device="cuda")
+               .to(dtype) for _ in range(3)]
+        for causal, window in ((True, None), (True, 128), (False, None)):
+            got = fa.flash_attention(*qkv, causal=causal, window=window)
+            want = fa.flash_attention_plain(*qkv, causal, window)
+            torch.cuda.synchronize()
+            key = f"flash_{str(dtype)[6:]}"
+            errs[key] = max(errs.get(key, 0.0), compare(
+                f"K3 causal={causal} window={window} {dtype}", got, want,
+                tol))
+        del qkv
     # K2: B = 64, D = 2560, hidden in bf16 and f32
     D = 2560
     w1 = torch.randn(D, 512, generator=g, device="cuda") * (2.0 / D) ** 0.5
@@ -209,15 +273,22 @@ def check_result(res, engine):
     check(engine.fault_stats.degraded_to_dense == 0, "engine degraded")
 
 
-def phase_serve(rt, ops, cfg, params, scorer):
+def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
+    """The STEP serve at full width over a ``kv_dtype`` pool: phase
+    ``serve`` (bf16, one-shot prefill) or ``serve_<kv_dtype>`` (int8/fp8,
+    chunked prefill, so both faces of the quantized kernel run)."""
     E = rt["engine"]
+    name = "serve" if kv_dtype == "bf16" else f"serve_{kv_dtype}"
+    quant = kv_dtype in QUANT
+    decode = "paged_attention_decode" + ("_quant" if quant else "")
     tok = rt["tokenizer"].get_tokenizer()
     problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
     prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
     ecfg = E.EngineConfig(max_batch=16, num_blocks=80, capacity=512,
                           max_new_tokens=128, sampling=greedy(rt, 128),
                           use_kernel="auto", decode_horizon=4,
-                          prefix_cache=True, faults=None, kv_dtype="bf16")
+                          prefill_chunk_size=chunk,
+                          prefix_cache=True, faults=None, kv_dtype=kv_dtype)
     engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
                       scorer_params=scorer)
     check(engine.use_kernel and engine.fused_scorer,
@@ -231,31 +302,39 @@ def phase_serve(rt, ops, cfg, params, scorer):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     check_result(res, engine)
-    check(launches["paged_attention_decode"] > 0, "K1a never launched")
+    check(launches[decode] > 0, f"{decode} never launched")
+    if quant:
+        check(launches["paged_attention_prefill_quant"] > 0,
+              "K1c prefill face never launched")
+        check(launches["paged_attention_decode"] == 0
+              and launches["paged_attention_prefill"] == 0,
+              "a float-pool kernel ran on a quantized pool")
     check(launches["step_score"] > 0, "K2 never launched")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
           "STEP made a trace wait")
     iters = launches["step_score"]  # one fused scorer launch per iteration
-    out = {"prompt_tokens": len(prompt), "traces": 16,
+    out = {"kv_dtype": kv_dtype, "prefill_chunk_size": chunk,
+           "prompt_tokens": len(prompt), "traces": 16,
            "num_pruned": res.num_pruned, "total_tokens": res.total_tokens,
            "wall_s": wall, "decode_s": res.decode_s,
            "prefill_s": res.prefill_s,
            "tokens_per_s": res.total_tokens / wall,
            "decode_iterations": iters,
            "launches": launches,
-           "k1a_launches_per_iteration": launches[
-               "paged_attention_decode"] / max(iters, 1),
+           "decode_launches_per_iteration": launches[decode] / max(iters, 1),
+           "kv_block_bytes": engine.kv_block_bytes,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "pool_drained": True}
-    emit("serve", **out)
+    emit(name, **out)
     return out
 
 
-def phase_smoke_reference(rt):
+def phase_smoke_reference(rt, kv_dtype="f32", chunk=None):
     """Kernel engine vs dense engine on a small input: smoke config, f32
-    params and pools, greedy STEP under memory pressure — identical
-    tokens, statuses and prunes, step scores within 1e-5."""
+    params, greedy STEP under memory pressure over a ``kv_dtype`` pool —
+    identical tokens, statuses and prunes, step scores within 1e-5 (both
+    paths dequantize an int8/fp8 pool to the same f32 values)."""
     E = rt["engine"]
     cfg = rt["registry"].serving_config()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -268,7 +347,8 @@ def phase_smoke_reference(rt):
         ecfg = E.EngineConfig(max_batch=8, num_blocks=16, capacity=128,
                               max_new_tokens=40, sampling=greedy(rt, 40),
                               use_kernel=use_kernel, decode_horizon=4,
-                              faults=None, kv_dtype="f32")
+                              prefill_chunk_size=chunk, faults=None,
+                              kv_dtype=kv_dtype)
         engine = E.Engine(params, cfg, ecfg,
                           rt["pruning"].make_policy("step"),
                           scorer_params=scorer)
@@ -284,8 +364,9 @@ def phase_smoke_reference(rt):
     err = max((abs(a - b) for tk, td in zip(k.traces, d.traces)
                for a, b in zip(tk.step_scores, td.step_scores)), default=0.0)
     check(err <= 1e-5, f"kernel vs dense step scores differ by {err}")
-    emit("reference", config=cfg.name, tokens_identical=True,
-         num_pruned=k.num_pruned,
+    emit("reference" if kv_dtype == "f32" else f"reference_{kv_dtype}",
+         config=cfg.name, kv_dtype=kv_dtype, prefill_chunk_size=chunk,
+         tokens_identical=True, num_pruned=k.num_pruned,
          step_scores=sum(len(t.step_scores) for t in k.traces),
          max_step_score_err=err)
 
@@ -340,6 +421,120 @@ def phase_batched(rt, ops, cfg, params, scorer):
     return out
 
 
+def phase_forward_kernel(rt, ops, cfg, params):
+    """``forward_full(use_kernel=True)`` at full width, B = 1, S = 1024,
+    against the dense forward: one K3 launch per layer. Both round every
+    activation to bf16, at other places, through 36 layers: the logits
+    are held within 5% of their largest magnitude, and the greedy tokens
+    of at least 80% of the positions agree (random weights leave near
+    ties among 152k logits)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=g,
+                           device="cuda", dtype=torch.int32)
+    fwd = rt["model"].forward_full
+    with torch.no_grad():
+        dense = fwd(params, cfg, tokens)["logits"][..., :cfg.vocab_size]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fwd(params, cfg, tokens, use_kernel=True)["logits"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    got = got[..., :cfg.vocab_size].float()
+    dense = dense.float()
+    err = (got - dense).abs().max().item()
+    amax = dense.abs().max().item()
+    agree = (got.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()), "K3 forward: non-finite logits")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"K3 launched {launches['flash_attention']} times, not once per "
+          f"layer")
+    check(err <= 0.05 * amax, f"K3 forward: logits err {err} vs max {amax}")
+    check(agree >= 0.8, f"K3 forward: greedy tokens agree at {agree}")
+    out = {"shape": "B=1 S=1024 bf16", "launches": launches,
+           "logits_max_abs_err": err, "logits_max_abs": amax,
+           "argmax_agreement": agree, "wall_s": wall}
+    emit("forward_kernel", **out)
+    return out
+
+
+def phase_train(rt, ops, cfg, params):
+    """AdamW steps of ``make_train_step`` on the full-width params (bf16,
+    updated in place; f32 moments), B = 2, seq 128, one batch repeated:
+    the loss is finite and falls. Then ``build_step_scorer`` on the
+    trained params and a short STEP serve with the scorer it built."""
+    Tr, Opt = rt["trainer"], rt["optimizer"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    opt = Opt.AdamW(learning_rate=1e-3)
+    state = opt.init(params)
+    with_moments = torch.cuda.memory_allocated()
+    step = Tr.make_train_step(cfg, opt)
+    batch = torch.from_numpy(next(rt["dataset"].lm_batches(128, 2,
+                                                           seed=SEED)))
+    batch = batch.cuda()
+    losses, times = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch[:, :-1],
+                                   batch[:, 1:])
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    for p in rt["tree"].leaves(params):
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"train loss {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+
+    t0 = time.perf_counter()
+    scorer, info = rt["pipeline"].build_step_scorer(
+        params, cfg, n_problems=4, n_samples=4, per_class=16, seed=SEED,
+        scfg=rt["scorer"].ScorerTrainConfig(max_epochs=5))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(scorer["w1"].device.type == "cuda", "scorer trained off the card")
+    check(math.isfinite(info["best_val_loss"]), "scorer val loss")
+
+    E = rt["engine"]
+    tok = rt["tokenizer"].get_tokenizer()
+    problem = rt["evaluate"].make_problems(1, seed=SEED + 5)[0]
+    prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
+    ecfg = E.EngineConfig(max_batch=8, num_blocks=40, capacity=256,
+                          max_new_tokens=48, sampling=greedy(rt, 48),
+                          use_kernel="auto", decode_horizon=4, faults=None,
+                          kv_dtype="bf16")
+    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
+                      scorer_params=scorer)
+    ops.reset_launch_counts()
+    res = engine.serve(prompt, 8)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_result(res, engine)
+    check(launches["step_score"] > 0, "the built scorer never ran")
+    n_scores = sum(len(t.step_scores) for t in res.traces)
+    out = {"shape": "B=2 seq=128, AdamW lr 1e-3, f32 moments",
+           "losses": losses, "step_s": times,
+           "max_memory_allocated": peak,
+           "memory_allocated_at_start": at_start,
+           "memory_allocated_with_moments": with_moments,
+           "scorer": {k: info[k] for k in ("num_steps", "pos_rate",
+                                           "sampled_correct_rate",
+                                           "fallback_rendered",
+                                           "best_val_loss")},
+           "scorer_epochs": len(info["history"]),
+           "build_step_scorer_s": build_s,
+           "serve": {"total_tokens": res.total_tokens,
+                     "num_pruned": res.num_pruned, "step_scores": n_scores,
+                     "launches": launches}}
+    emit("train", **out)
+    return out
+
+
 def time_cuda(fn, reps=30, warmup=3):
     """Mean device ms per call of ``fn``. The call is captured once in a
     CUDA graph and each replay is timed with CUDA events, so the time is
@@ -378,7 +573,7 @@ def bound_ms(nbytes, flops, dtype):
         "operations"
 
 
-def phase_times(pa, ss):
+def phase_times(pa, ss, fa, kvq):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     H, KVH, hd, bp, page = 32, 8, 128, 32, 16
@@ -438,6 +633,76 @@ def phase_times(pa, ss):
             qd, kd, vd, attn_mask=cmask, scale=scale, enable_gqa=True)),
         shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} bf16",
         bytes=nbytes, flops=flops, dtype=bf)
+
+    # K1c at the same decode and chunk shapes over int8 and fp8 pools. The
+    # library yardstick is SDPA over K/V gathered and dequantized before
+    # the timed call (the gather and dequantization are not timed).
+    for kv_dtype in QUANT:
+        q, kp, vp, bt, cl = decode_inputs(g, B, H, KVH, hd, bp, lens,
+                                          torch.float32)
+        kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+        q = q.to(bf)
+        pages = sum(-(-n // page) for n in lens)
+        nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + cl.numel() * 4
+                  + 2 * pages * page * KVH * (hd + 4))
+        kd = pa.gather_kv(kq, bt, ks).to(bf).transpose(1, 2).contiguous()
+        vd = pa.gather_kv(vq, bt, vs).to(bf).transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None])[
+            :, None, None, :]
+        q4 = q[:, :, None, :]
+        rows[f"paged_attention_decode_{kv_dtype}"] = dict(
+            ms=time_cuda(lambda: pa.paged_attention(
+                q, kq, vq, bt, cl, scale=scale, k_scale=ks, v_scale=vs)),
+            plain_ms=time_cuda(lambda: pa.paged_attention_plain(
+                q, kq, vq, bt, cl, scale, ks, vs)),
+            library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
+            library="SDPA over K/V gathered and dequantized beforehand",
+            shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
+                  f"{lens[-1]} bf16 q, {kv_dtype} pool",
+            bytes=nbytes, flops=4 * hd * H * sum(lens), dtype=bf)
+
+        q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
+            g, C, H, KVH, hd, bp, prefix, C, torch.float32)
+        kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+        q, ok, ov = q.to(bf), ok.to(bf), ov.to(bf)
+        pages = -(-prefix // page)
+        nbytes = (2 * q.numel() * 2 + 2 * ok.numel() * 2 + bt.numel() * 4
+                  + 8 + 2 * pages * page * KVH * (hd + 4))
+        keys = torch.cat([pa.gather_kv(kq, bt, ks)[:, :prefix].to(bf), ok],
+                         1)
+        vals = torch.cat([pa.gather_kv(vq, bt, vs)[:, :prefix].to(bf), ov],
+                         1)
+        kd = keys.transpose(1, 2).contiguous()
+        vd = vals.transpose(1, 2).contiguous()
+        qd = q.transpose(1, 2)
+        rows[f"paged_attention_prefill_{kv_dtype}"] = dict(
+            ms=time_cuda(lambda: pa.paged_attention_prefill(
+                q, kq, vq, bt, pl, nv, ok, ov, scale=scale, k_scale=ks,
+                v_scale=vs)),
+            plain_ms=time_cuda(lambda: pa.paged_attention_prefill_plain(
+                q, kq, vq, bt, pl, nv, ok, ov, scale, None, ks, vs)),
+            library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=cmask, scale=scale, enable_gqa=True)),
+            library="SDPA over K/V gathered and dequantized beforehand",
+            shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} "
+                  f"bf16 q, {kv_dtype} pool",
+            bytes=nbytes, flops=4 * hd * H * visible, dtype=bf)
+
+    # K3 at the kernels phase's shape: B = 1, H = 32, S = 2048, causal bf16
+    Sf = 2048
+    qf, kf, vf = (torch.randn(1, H, Sf, hd, generator=g, device="cuda")
+                  .to(bf) for _ in range(3))
+    rows["flash_attention"] = dict(
+        ms=time_cuda(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
+        plain_ms=time_cuda(lambda: fa.flash_attention_plain(qf, kf, vf,
+                                                            True)),
+        library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, is_causal=True)),
+        library="SDPA, is_causal",
+        shape=f"B=1 H={H} S={Sf} hd={hd} causal bf16",
+        bytes=4 * qf.numel() * 2, flops=4 * hd * H * Sf * (Sf + 1) // 2,
+        dtype=bf)
 
     # K2 at the decode batch: 16 lanes, D = 2560, bf16 hidden
     D, Hd = 2560, 512
@@ -510,46 +775,74 @@ def main() -> int:
              "scorer": "core.scorer", "pruning": "core.pruning",
              "engine": "serving.engine", "evaluate": "serving.evaluate",
              "sampling": "serving.sampling", "tokenizer": "data.tokenizer",
-             "arithmetic": "data.arithmetic", "model": "models.model"}
+             "arithmetic": "data.arithmetic", "model": "models.model",
+             "kv_quant": "models.kv_quant", "trainer": "training.trainer",
+             "optimizer": "training.optimizer", "tree": "training.tree",
+             "dataset": "data.dataset", "pipeline": "core.pipeline"}
     rt = {k: importlib.import_module(f"repro_torch.{v}")
           for k, v in names.items()}
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import step_score as ss
+    kvq = rt["kv_quant"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_device()
     phase_build(ops)
-    errs = phase_kernels(pa, ss)
+    errs = phase_kernels(pa, ss, fa, kvq)
     cfg, params, scorer, n_params, init_s = full_model(rt)
     emit("model", name=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=n_params, init_s=init_s)
     serve = phase_serve(rt, ops, cfg, params, scorer)
     phase_smoke_reference(rt)
     batched = phase_batched(rt, ops, cfg, params, scorer)
-    times = phase_times(pa, ss)
+    # chunks of 8: the 15-token prompt prefills in two chunks (the
+    # scheduler prefills one-shot a prompt that fits in one chunk)
+    quant = {kv_dtype: phase_serve(rt, ops, cfg, params, scorer, kv_dtype,
+                                   chunk=8)
+             for kv_dtype in QUANT}
+    phase_smoke_reference(rt, "int8", chunk=4)
+    forward = phase_forward_kernel(rt, ops, cfg, params)
+    phase_train(rt, ops, cfg, params)
+    times = phase_times(pa, ss, fa, kvq)
     phase_step(rt, cfg, params)
 
+    # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"
+    paged = (src + "paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:62")
     meta = {
-        "paged_attention_decode": (src + "paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:62",
-                                   "decode_bfloat16"),
-        "paged_attention_prefill": (src + "paged_attention.cu",
-                                    "src/repro/kernels/paged_attention.py:62",
-                                    "prefill_bfloat16"),
+        "paged_attention_decode": (*paged, "decode_bfloat16",
+                                   serve["launches"]["paged_attention_decode"]
+                                   + batched["launches"][
+                                       "paged_attention_decode"]),
+        "paged_attention_prefill": (*paged, "prefill_bfloat16",
+                                    batched["launches"][
+                                        "paged_attention_prefill"]),
         "step_score": (src + "step_score.cu",
                        "src/repro/kernels/step_score.py:30",
-                       "score_bfloat16"),
+                       "score_bfloat16",
+                       serve["launches"]["step_score"]
+                       + batched["launches"]["step_score"]),
+        "flash_attention": (src + "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:38",
+                            "flash_bfloat16",
+                            forward["launches"]["flash_attention"]),
     }
+    for kv_dtype, run in quant.items():
+        for face in ("decode", "prefill"):
+            meta[f"paged_attention_{face}_{kv_dtype}"] = (
+                *paged, f"{face}_{kv_dtype}_bfloat16",
+                run["launches"][f"paged_attention_{face}_quant"])
     kernels = []
-    for name, (source, replaces, err_key) in meta.items():
+    for name, (source, replaces, err_key, launches) in meta.items():
         t = times[name]
+        check(launches > 0, f"{name}: no launch on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": serve["launches"][name] + batched["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": errs[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -8,13 +8,17 @@
 //                   (slots < prefix_lens[b]) plus the chunk's own exact
 //                   K/V with a causal mask, num_valid padding and an
 //                   optional sliding window.
-// Float pools only (f32 or bf16); the quantized face (has_scales) is
-// still to be ported.
+// The pool is f32, bf16, int8 or fp8 (e4m3). A quantized pool (the JAX
+// kernel's has_scales variant) comes with f32 scales [NB, page, KVH], one
+// per slot and kv head: each staged page element is cast to f32 and
+// multiplied by its slot's scale as it lands in shared memory, the
+// dequantization the dense path applies to its gathered pages. The
+// chunk's own K/V is exact and never scaled.
 //
 // What bounds it on the H100: bytes. Per (lane, kv head) the kernel reads
 // its live K and V pages once and does 4*hd flops per (query row, key);
 // with the G = 4 query heads of a kv head at decode that is about 4 flops
-// per pool byte, far below the ~295 flops per byte at which the tensor
+// per bf16 pool byte (8 per int8/fp8 byte, plus 4 scale bytes per slot), far below the ~295 flops per byte at which the tensor
 // cores would be the limit. So the design keeps everything but the page
 // reads on chip: the query tile, the scores, the softmax state and the
 // accumulator never touch device memory, and pages past the visible
@@ -33,7 +37,9 @@
 //   K/V is a last pass in page-sized tiles. Rows with no visible key emit
 //   zeros (acc / (l == 0 ? 1 : l)), the JAX kernel's safe_l convention.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <math.h>
 
 namespace {
@@ -45,6 +51,10 @@ constexpr float NEG_INF = -1e30f;    // the JAX kernel's masked-score fill
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -60,6 +70,8 @@ struct Args {
   const int* nvalid;   // [B] real chunk tokens, or null (decode)
   const void* own_k;   // [B, KVH, C, hd], or null (decode)
   const void* own_v;
+  const float* k_scale;  // [NB, page, KVH] for an int8/fp8 pool, or null
+  const float* v_scale;
   void* out;           // [B, KVH, CG, hd]
   int KVH, CG, C, G, bp, page;
   float scale;
@@ -176,13 +188,19 @@ __global__ void __launch_bounds__(NT) mq_paged_kernel(Args a) {
     if (has_own && a.window >= 0)  // left of every query's window
       live = live && page_start + a.page > cache_len - a.window;
     if (!live) continue;  // uniform over the CTA
-    const size_t base =
-        (size_t)a.bt[b * a.bp + p] * a.page * slot_stride + (size_t)h * HD;
+    const size_t block = (size_t)a.bt[b * a.bp + p];
+    const size_t base = block * a.page * slot_stride + (size_t)h * HD;
     for (int e = tid; e < a.page * HD; e += NT) {
       const int j = e / HD, d = e % HD;
       const size_t off = base + j * slot_stride + d;
-      k_s[j * KP + d] = to_f32(kp[off]);
-      v_s[j * HD + d] = to_f32(vp[off]);
+      float kx = to_f32(kp[off]), vx = to_f32(vp[off]);
+      if (a.k_scale != nullptr) {  // in-loop dequantization, per slot
+        const size_t so = (block * a.page + j) * a.KVH + h;
+        kx *= a.k_scale[so];
+        vx *= a.v_scale[so];
+      }
+      k_s[j * KP + d] = kx;
+      v_s[j * HD + d] = vx;
     }
     __syncthreads();
     fold_tile<HD>(a, q_s, k_s, v_s, s_s, m_s, l_s, al_s, acc, a.page,
@@ -236,31 +254,45 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int HD, typename QT>
+int dispatch_pool(const Args& a, int B, int kv_kind, cudaStream_t stream) {
+  switch (kv_kind) {
+    case 0: return launch<HD, QT, float>(a, B, stream);
+    case 1: return launch<HD, QT, __nv_bfloat16>(a, B, stream);
+    case 2: return launch<HD, QT, int8_t>(a, B, stream);
+    case 3: return launch<HD, QT, __nv_fp8_e4m3>(a, B, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int HD>
-int dispatch_dtypes(const Args& a, int B, int q_bf16, int kv_bf16,
+int dispatch_dtypes(const Args& a, int B, int q_bf16, int kv_kind,
                     cudaStream_t stream) {
-  if (q_bf16 && kv_bf16) return launch<HD, __nv_bfloat16, __nv_bfloat16>(a, B, stream);
-  if (q_bf16) return launch<HD, __nv_bfloat16, float>(a, B, stream);
-  if (kv_bf16) return launch<HD, float, __nv_bfloat16>(a, B, stream);
-  return launch<HD, float, float>(a, B, stream);
+  if (q_bf16) return dispatch_pool<HD, __nv_bfloat16>(a, B, kv_kind, stream);
+  return dispatch_pool<HD, float>(a, B, kv_kind, stream);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 on
-// success). q_bf16 / kv_bf16: 1 for bf16, 0 for f32 (queries, own K/V and
-// the output share the query dtype). nvalid/own_k/own_v null = decode.
+// success). q_bf16: 1 for bf16, 0 for f32 (queries, own K/V and the
+// output share the query dtype). kv_kind: the pool type, 0 f32, 1 bf16,
+// 2 int8, 3 fp8 e4m3; the two quantized kinds need k_scale/v_scale.
+// nvalid/own_k/own_v null = decode.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* lens, const void* nvalid,
-    const void* own_k, const void* own_v, void* out, int B, int KVH, int CG,
-    int C, int G, int bp, int page, int hd, int q_bf16, int kv_bf16,
-    float scale, int window, void* stream) {
+    const void* own_k, const void* own_v, const void* k_scale,
+    const void* v_scale, void* out, int B, int KVH, int CG, int C, int G,
+    int bp, int page, int hd, int q_bf16, int kv_kind, float scale,
+    int window, void* stream) {
+  if ((kv_kind >= 2) != (k_scale != nullptr && v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, (const int*)block_tables, (const int*)lens,
-         (const int*)nvalid, own_k, own_v, out, KVH, CG, C, G, bp, page,
-         scale, window};
+         (const int*)nvalid, own_k, own_v, (const float*)k_scale,
+         (const float*)v_scale, out, KVH, CG, C, G, bp, page, scale, window};
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64) return dispatch_dtypes<64>(a, B, q_bf16, kv_bf16, st);
-  if (hd == 128) return dispatch_dtypes<128>(a, B, q_bf16, kv_bf16, st);
+  if (hd == 64) return dispatch_dtypes<64>(a, B, q_bf16, kv_kind, st);
+  if (hd == 128) return dispatch_dtypes<128>(a, B, q_bf16, kv_kind, st);
   return (int)cudaErrorInvalidValue;
 }

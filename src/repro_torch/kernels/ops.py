@@ -11,14 +11,16 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import step_score as _score
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.paged_attention import (  # noqa: F401
     paged_attention, paged_attention_prefill)
 from repro_torch.kernels.step_score import step_score  # noqa: F401
 
 # CUDA sources under csrc/, one shared library each
-SOURCES = ("paged_attention", "step_score")
+SOURCES = ("paged_attention", "step_score", "flash_attention")
 
 
 def step_score_params(hidden, params: dict):
@@ -30,11 +32,15 @@ def step_score_params(hidden, params: dict):
 def launch_counts() -> Dict[str, int]:
     return {"paged_attention_decode": _paged.LAUNCHES["decode"],
             "paged_attention_prefill": _paged.LAUNCHES["prefill"],
-            "step_score": _score.LAUNCHES["step_score"]}
+            "paged_attention_decode_quant": _paged.LAUNCHES["decode_quant"],
+            "paged_attention_prefill_quant":
+                _paged.LAUNCHES["prefill_quant"],
+            "step_score": _score.LAUNCHES["step_score"],
+            "flash_attention": _flash.LAUNCHES["flash"]}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_paged.LAUNCHES, _score.LAUNCHES):
+    for counts in (_paged.LAUNCHES, _score.LAUNCHES, _flash.LAUNCHES):
         for name in counts:
             counts[name] = 0
 

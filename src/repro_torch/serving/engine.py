@@ -37,9 +37,11 @@ from repro_torch.core.pruning import DeepConfPolicy, PruningPolicy
 from repro_torch.core.scorer import scorer_score
 from repro_torch.core.trace import Trace, TraceStatus
 from repro_torch.data.tokenizer import get_tokenizer
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kv_quant
-from repro_torch.models.model import (copy_kv_block, forward_full,
+from repro_torch.models.model import (POOL_KEYS, copy_kv_block,
+                                      forward_full,
                                       init_decode_cache, multi_decode_step,
                                       prefill_chunk_step,
                                       supports_chunked_prefill,
@@ -86,18 +88,6 @@ def _default_kv_dtype():
     return os.environ.get("REPRO_KV_DTYPE", "").strip().lower() or "bf16"
 
 
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: CUDA by default. Raises when CUDA is asked for
-    (or left to the default) and no card is present; the CPU only when the
-    caller names it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch runs on the GPU; pass "
-            "device='cpu' to run on the CPU")
-    return dev
-
-
 def resolve_use_kernel(setting, device: torch.device) -> bool:
     """Resolve ``EngineConfig.use_kernel`` (False / True / "auto") to the
     bool the steps consume. "auto" picks the CUDA kernels on a CUDA
@@ -142,7 +132,9 @@ class EngineConfig:
     decode_horizon: int = 1
     # Deterministic fault injection plan (serving/faults.py grammar).
     faults: Optional[str] = dataclasses.field(default_factory=_default_faults)
-    # Paged-pool storage dtype: "f32" | "bf16" (quantized: ROADMAP A7).
+    # Paged-pool storage dtype: "f32" | "bf16" | "int8" | "fp8". The
+    # quantized pools keep one f32 scale per (layer, block, slot, kv head)
+    # beside them (models/kv_quant.py); dense GQA models only.
     kv_dtype: str = dataclasses.field(default_factory=_default_kv_dtype)
 
     # env var -> (field, parser, minimum), as in the JAX package
@@ -484,8 +476,9 @@ class Engine:
         """Write prompt KV into the paged pools ONCE for a block row."""
         if attn_kvs is None:
             return cache
-        sub = {"k_pool": cache["k_pool"], "v_pool": cache["v_pool"],
-               "block_tables": self.to_device(block_row[None, :])}
+        # a quantized pool's scales ride along with it
+        sub = {k: v for k, v in cache.items() if k in POOL_KEYS}
+        sub["block_tables"] = self.to_device(block_row[None, :])
         lens = torch.full((1,), seq_len, dtype=torch.int32,
                           device=self.device)
         self._write_kv(sub, attn_kvs, lens)

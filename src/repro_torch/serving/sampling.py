@@ -6,8 +6,9 @@ takes, with the Gumbel noise drawn from the generator. JAX's threefry and
 torch's Philox never draw the same bits, so token identity with the JAX
 package is a greedy contract (``temperature <= 0`` draws nothing); the
 sampled path is held to it by passing both the same ``noise``. PyTorch
-runs eagerly, so the host-side call sites (prefill first-token sampling)
-call these functions directly: there is no jitted twin to keep.
+runs eagerly, so the host-side call sites (prefill first-token sampling,
+the data pipeline) call these functions directly: ``sample_tokens``, the
+JAX package's jitted wrapper, is ``sample_logits`` itself.
 """
 from __future__ import annotations
 
@@ -66,6 +67,9 @@ def sample_logits(rng: Optional[torch.Generator], logits: torch.Tensor, *,
     g = noise if noise is not None else _gumbel(rng, scaled)
     tokens = (scaled + g).argmax(dim=-1)
     return tokens.to(torch.int32), _confidence(base_logp, tokens)
+
+
+sample_tokens = sample_logits
 
 
 def sample_logits_lanes(rng: Optional[torch.Generator],

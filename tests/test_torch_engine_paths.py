@@ -137,9 +137,15 @@ def test_engine_device_rules(setup, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         te.Engine(setup["tp"], setup["cfg"], ecfg, policy, mesh=object(),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # the quantized pools are served on the CPU too; an unknown one raises
+    eng = te.Engine(setup["tp"], setup["cfg"],
+                    te.EngineConfig(faults=None, kv_dtype="int8"), policy,
+                    device="cpu")
+    assert eng.kv_block_bytes == te.kv_quant.pool_block_bytes(setup["cfg"],
+                                                              "int8")
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
         te.Engine(setup["tp"], setup["cfg"],
-                  te.EngineConfig(faults=None, kv_dtype="int8"), policy,
+                  te.EngineConfig(faults=None, kv_dtype="int4"), policy,
                   device="cpu")
     cpu = torch.device("cpu")
     assert te.resolve_use_kernel("auto", cpu) is False

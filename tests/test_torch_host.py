@@ -89,7 +89,7 @@ def test_serving_config_matches():
         t_registry.get_config("mixtral-8x7b")
 
 
-@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8", "fp8"])
 def test_pool_block_bytes_match(kv_dtype):
     for jc, tc in ((j_registry.serving_config(),
                     t_registry.serving_config()),
@@ -100,8 +100,14 @@ def test_pool_block_bytes_match(kv_dtype):
 
 
 def test_quantized_pool_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_kvq.resolve_kv_dtype("int8", t_registry.serving_config(), True)
+    """The quantized pools are ported for the dense GQA stack; like the
+    JAX package, the port refuses them where chunked prefill (the dense
+    paged-attention family) is not supported."""
+    cfg = t_registry.serving_config()
+    for kv_dtype in ("int8", "fp8"):
+        assert t_kvq.resolve_kv_dtype(kv_dtype, cfg, True) == kv_dtype
+        with pytest.raises(NotImplementedError, match="dense GQA"):
+            t_kvq.resolve_kv_dtype(kv_dtype, cfg, False)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,11 @@ def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in _modules()}
     for want in ("serving/engine.py", "serving/scheduler.py",
                  "models/model.py", "kernels/paged_attention.py",
-                 "kernels/step_score.py", "models/bridge.py"):
+                 "kernels/step_score.py", "models/bridge.py",
+                 "models/kv_quant.py", "kernels/flash_attention.py",
+                 "training/optimizer.py", "training/checkpoint.py",
+                 "training/trainer.py", "data/dataset.py",
+                 "core/scorer.py", "core/pipeline.py"):
         assert want in names
 
 
@@ -47,6 +51,11 @@ def test_port_has_modules():
                          ids=lambda p: p.relative_to(PORT).as_posix())
 def test_no_jax_or_repro_import(path):
     assert _forbidden_imports(path) == []
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    """The chip script runs on the card's machine, which has no jax."""
+    assert _forbidden_imports(PORT.parent.parent / "chip_smoke.py") == []
 
 
 def test_checker_catches_forbidden_imports(tmp_path):

@@ -180,4 +180,6 @@ def test_cpu_wrappers_count_no_launch():
     ops.paged_attention(*targs, scale=0.1)
     assert ops.launch_counts() == {"paged_attention_decode": 0,
                                    "paged_attention_prefill": 0,
-                                   "step_score": 0}
+                                   "paged_attention_decode_quant": 0,
+                                   "paged_attention_prefill_quant": 0,
+                                   "step_score": 0, "flash_attention": 0}
