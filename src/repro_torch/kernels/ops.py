@@ -13,14 +13,16 @@ from typing import Dict
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import step_score as _score
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.paged_attention import (  # noqa: F401
     paged_attention, paged_attention_prefill)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401
 from repro_torch.kernels.step_score import step_score  # noqa: F401
 
 # CUDA sources under csrc/, one shared library each
-SOURCES = ("paged_attention", "step_score", "flash_attention")
+SOURCES = ("paged_attention", "step_score", "flash_attention", "ssd_scan")
 
 
 def step_score_params(hidden, params: dict):
@@ -36,11 +38,13 @@ def launch_counts() -> Dict[str, int]:
             "paged_attention_prefill_quant":
                 _paged.LAUNCHES["prefill_quant"],
             "step_score": _score.LAUNCHES["step_score"],
-            "flash_attention": _flash.LAUNCHES["flash"]}
+            "flash_attention": _flash.LAUNCHES["flash"],
+            "ssd_scan": _ssd.LAUNCHES["ssd_scan"]}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_paged.LAUNCHES, _score.LAUNCHES, _flash.LAUNCHES):
+    for counts in (_paged.LAUNCHES, _score.LAUNCHES, _flash.LAUNCHES,
+                   _ssd.LAUNCHES):
         for name in counts:
             counts[name] = 0
 

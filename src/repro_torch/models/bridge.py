@@ -12,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -28,16 +30,19 @@ def _tensor(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype).contiguous()
 
 
-def params_from_numpy(tree: dict, device="cpu",
+def params_from_numpy(tree: dict, device=None,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """JAX param pytree as numpy (nested dicts of arrays) -> the port's
-    params (nested dicts of tensors on ``device``), cast to ``dtype``
-    when given."""
+    params (nested dicts of tensors on ``device``: CUDA unless the caller
+    names the CPU), cast to ``dtype`` when given."""
+    device = resolve_device(device)
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
                 else _tensor(v, device, dtype))
             for k, v in tree.items()}
 
 
-def scorer_from_numpy(tree: dict, device="cpu") -> dict:
-    """JAX scorer dict {w1, b1, w2, b2} as numpy -> f32 tensors."""
+def scorer_from_numpy(tree: dict, device=None) -> dict:
+    """JAX scorer dict {w1, b1, w2, b2} as numpy -> f32 tensors on
+    ``device`` (CUDA unless the caller names the CPU)."""
+    device = resolve_device(device)
     return {k: _tensor(v, device, torch.float32) for k, v in tree.items()}

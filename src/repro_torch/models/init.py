@@ -1,4 +1,4 @@
-"""Parameter initialization for the ported (dense) architectures.
+"""Parameter initialization for the ported architectures (dense, ssm).
 
 Layer params are STACKED along a leading [num_layers] axis, in the JAX
 package's names and layouts (``wq [L, D, H*hd]``, ``embed [Vp, D]``), so
@@ -13,6 +13,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import check_ported
 
 DTYPE = torch.bfloat16
 
@@ -23,11 +24,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random dense-stack params on ``generator``'s device."""
-    if cfg.arch_type != "dense" or cfg.use_mla or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"repro_torch initializes the dense stack only, not "
-            f"{cfg.arch_type!r} (ROADMAP A9)")
+    """Random params of a dense or ssm stack on ``generator``'s device."""
+    check_ported(cfg)
     dev = generator.device
 
     def dense(fan_in, *shape, scale=None):
@@ -39,6 +37,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     def ones(*shape):
         return torch.ones(shape, dtype=DTYPE, device=dev)
 
+    L, D = cfg.num_layers, cfg.d_model
+    params = {
+        "embed": dense(D, padded_vocab(cfg), D, scale=0.02),
+        "final_norm": ones(D),
+    }
+    if cfg.arch_type == "ssm":
+        params["layers"] = {"norm": ones(L, D),
+                            "mixer": _mamba_params(cfg, dense, dev)}
+    else:
+        params["layers"] = _dense_layers(cfg, dense, ones)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(D, D, padded_vocab(cfg))
+    return params
+
+
+def _dense_layers(cfg: ModelConfig, dense, ones) -> dict:
     L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     depth = math.sqrt(2 * max(L, 1))
@@ -52,24 +66,43 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = ones(L, hd)
         attn["k_norm"] = ones(L, hd)
-    params = {
-        "embed": dense(D, padded_vocab(cfg), D, scale=0.02),
-        "final_norm": ones(D),
-        "layers": {
-            "ln1": ones(L, D),
-            "attn": attn,
-            "ln2": ones(L, D),
-            "mlp": {
-                "w_gate": dense(D, L, D, F),
-                "w_up": dense(D, L, D, F),
-                "w_down": dense(F, L, F, D,
-                                scale=1.0 / math.sqrt(F) / depth),
-            },
+    return {
+        "ln1": ones(L, D),
+        "attn": attn,
+        "ln2": ones(L, D),
+        "mlp": {
+            "w_gate": dense(D, L, D, F),
+            "w_up": dense(D, L, D, F),
+            "w_down": dense(F, L, F, D, scale=1.0 / math.sqrt(F) / depth),
         },
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense(D, D, padded_vocab(cfg))
-    return params
+
+
+def _mamba_params(cfg: ModelConfig, dense, dev) -> dict:
+    """The stacked Mamba2 mixer of ``repro/models/init.py::_mamba_params``:
+    ``A_log`` = log(1..H), ``D`` = 1 and ``dt_bias`` = softplus^-1(0.01)
+    stay f32 beside the bf16 matrices."""
+    L, D = cfg.num_layers, cfg.d_model
+    di, N, H, W = (cfg.d_inner, cfg.ssm_state_size, cfg.ssm_heads,
+                   cfg.ssm_conv_width)
+    conv_ch = di + 2 * N
+
+    def f32_rows(row):
+        return row.to(dev).expand(L, H).contiguous()
+
+    return {
+        "w_in": dense(D, L, D, 2 * di + 2 * N + H),
+        "conv_w": dense(W, L, W, conv_ch),
+        "conv_b": torch.zeros((L, conv_ch), dtype=DTYPE, device=dev),
+        "A_log": f32_rows(torch.log(torch.arange(1, H + 1,
+                                                 dtype=torch.float32))),
+        "D": torch.ones((L, H), dtype=torch.float32, device=dev),
+        "dt_bias": f32_rows(torch.log(torch.expm1(
+            torch.full((H,), 0.01, dtype=torch.float32)))),
+        "norm_w": torch.ones((L, di), dtype=DTYPE, device=dev),
+        "w_out": dense(di, L, di, D,
+                       scale=1.0 / math.sqrt(di) / math.sqrt(2 * L)),
+    }
 
 
 def count_params(params: dict) -> int:

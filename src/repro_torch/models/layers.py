@@ -371,3 +371,182 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
             q, k_pool, v_pool, block_tables, prefix_lens, num_valid, own_k,
             own_v, scale, window, k_scale, v_scale)
     return out.reshape(B, C, H * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD): chunked full-sequence scan and single-step decode
+# ---------------------------------------------------------------------------
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """out[..., i, j] = cs_i - cs_j for j <= i (cs the inclusive cumsum of
+    ``a`` over its last axis), -inf above the diagonal."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None,
+                use_kernel: bool = False):
+    """SSD (state-space duality) scan, chunked.
+
+    x [B, S, H, P]; dt [B, S, H] (softplus'd step sizes); A [H] (negative
+    decay rates); Bm/Cm [B, S, N] (shared across heads, ngroups = 1).
+    Returns (y [B, S, H, P], final_state [B, H, P, N]). ``use_kernel``
+    goes through the SSD scan wrapper (the CUDA kernel on a CUDA tensor,
+    its plain version on the CPU), which starts from a zero state."""
+    if use_kernel:
+        return kops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                             initial_state=initial_state)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    xc = x.reshape(B, nc, chunk, H, P)
+    dtc = dt.reshape(B, nc, chunk, H)
+    Bc = Bm.reshape(B, nc, chunk, N)
+    Cc = Cm.reshape(B, nc, chunk, N)
+
+    dA = (dtc * A[None, None, None, :]).movedim(-1, 2)   # [B, nc, H, l]
+    dA_cumsum = torch.cumsum(dA, dim=-1)
+
+    # 1. intra-chunk (quadratic within the chunk)
+    Lmat = torch.exp(_segsum(dA))                         # [B, nc, H, l, l]
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)[:, :, None] * Lmat
+    y_diag = torch.einsum("bchls,bcsh,bcshp->bclhp", scores, dtc, xc)
+
+    # 2. chunk states
+    decay_states = torch.exp(dA_cumsum[..., -1:] - dA_cumsum)  # [B,nc,H,l]
+    states = torch.einsum("bcln,bchl,bclh,bclhp->bchpn",
+                          Bc, decay_states, dtc, xc)
+
+    # 3. inter-chunk recurrence: the state BEFORE each chunk
+    chunk_decay = torch.exp(dA_cumsum[..., -1])           # [B, nc, H]
+    h = (initial_state if initial_state is not None
+         else torch.zeros((B, H, P, N), dtype=states.dtype,
+                          device=x.device))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                   # [B, nc, H, P, N]
+
+    # 4. state -> output contribution
+    state_decay = torch.exp(dA_cumsum)                    # [B, nc, H, l]
+    y_off = torch.einsum("bcln,bchpn,bchl->bclhp", Cc, h_prev, state_decay)
+
+    y = (y_diag + y_off).reshape(B, S, H, P)
+    return y, h
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor):
+    """One-token SSD recurrence. state [B, H, P, N]; x [B, H, P];
+    dt [B, H]; A [H]; Bm/Cm [B, N]. Returns (y [B, H, P], new_state)."""
+    dA = torch.exp(dt * A[None, :])                       # [B, H]
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, Bm, x)
+    new_state = state * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm)
+    return y, new_state
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x [B, S, C]; w [W, C]; b [C]."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(W))
+    return out + b[None, None, :]
+
+
+def causal_conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor):
+    """conv_state [B, W-1, C]; x_t [B, C]. Returns (y [B, C], new_state
+    [B, W-1, C]) in the promoted dtype of the state and the input."""
+    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # [B, W, C]
+    y = torch.einsum("bwc,wc->bc", full, w.to(full.dtype)) + b[None, :]
+    return y, full[:, 1:, :]
+
+
+def _ssm_inputs(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """Split the input projection: (z, xbc, dt) along the last axis."""
+    di, N = cfg.d_inner, cfg.ssm_state_size
+    return (zxbcdt[..., :di], zxbcdt[..., di:di + di + 2 * N],
+            zxbcdt[..., di + di + 2 * N:])
+
+
+def _ssm_decay(p: dict, dt: torch.Tensor):
+    """(softplus'd f32 step sizes, A = -exp(A_log) f32)."""
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    return dt, -torch.exp(p["A_log"].float())
+
+
+def _ssm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
+             z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Skip term, gate, norm and output projection of the mixer. y/xs
+    [..., H, P]; z [..., di]."""
+    y = y + xs.float() * p["D"].float()[:, None]
+    y = y.reshape(*z.shape).to(dtype)
+    y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm_w"], cfg.norm_eps)
+    return y @ p["w_out"]
+
+
+def mamba2_mixer_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      use_kernel: bool = False, return_state: bool = False):
+    """Full-sequence Mamba2 mixer. x [B, S, D].
+
+    p: {w_in [D, 2di+2N+H], conv_w [W, di+2N], conv_b, A_log [H], D [H],
+    dt_bias [H], norm_w [di], w_out [di, D]}. The scan runs in f32 over S
+    padded to a multiple of the chunk with dt = 0 (decay 1, input 0: the
+    state is exactly unchanged). With ``return_state`` also returns
+    (ssm_state [B, H, P, N] f32, conv_state [B, W-1, di+2N] in x's dtype)
+    for decode continuation."""
+    B, S, _ = x.shape
+    di, N, H = cfg.d_inner, cfg.ssm_state_size, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    z, xbc_raw, dt = _ssm_inputs(cfg, x @ p["w_in"])
+    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"], p["conv_b"])
+                 .float()).to(x.dtype)
+    xs = xbc[..., :di].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    dt, A = _ssm_decay(p, dt)
+
+    chunk = min(cfg.ssm_chunk_size, S)
+    pad = (-S) % chunk
+    xs_f, Bm_f, Cm_f, dt_p = xs.float(), Bm.float(), Cm.float(), dt
+    if pad:
+        xs_f = F.pad(xs_f, (0, 0, 0, 0, 0, pad))
+        dt_p = F.pad(dt, (0, 0, 0, pad))
+        Bm_f = F.pad(Bm_f, (0, 0, 0, pad))
+        Cm_f = F.pad(Cm_f, (0, 0, 0, pad))
+    y, final_state = ssd_chunked(xs_f, dt_p, A, Bm_f, Cm_f, chunk=chunk,
+                                 use_kernel=use_kernel)
+    out = _ssm_out(p, cfg, y[:, :S], xs, z, x.dtype)
+    if return_state:
+        W = cfg.ssm_conv_width
+        conv_state = (xbc_raw[:, S - (W - 1):, :] if S >= W - 1
+                      else F.pad(xbc_raw, (0, 0, W - 1 - S, 0)))
+        return out, final_state, conv_state.to(x.dtype)
+    return out
+
+
+def mamba2_mixer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """One-token Mamba2 step. x [B, 1, D]. Returns (out [B, 1, D],
+    new_ssm [B, H, P, N] f32, new_conv [B, W-1, di+2N])."""
+    B = x.shape[0]
+    di, N, H = cfg.d_inner, cfg.ssm_state_size, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    z, xbc, dt = _ssm_inputs(cfg, x[:, 0] @ p["w_in"])
+    xbc, new_conv = causal_conv1d_step(conv_state, xbc, p["conv_w"],
+                                       p["conv_b"])
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xs = xbc[..., :di].reshape(B, H, P)
+    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    dt, A = _ssm_decay(p, dt)
+    y, new_state = ssd_decode_step(ssm_state, xs.float(), dt, A, Bm.float(),
+                                   Cm.float())
+    return _ssm_out(p, cfg, y, xs, z, x.dtype)[:, None, :], new_state, \
+        new_conv

@@ -1,4 +1,5 @@
-"""Forward passes of the dense stack, ported from ``repro/models/model.py``.
+"""Forward passes of the dense GQA stack and the ssm (Mamba2) stack,
+ported from ``repro/models/model.py``.
 
   forward_full(...)       — full-sequence forward (one-shot prefill and
                             training; ``use_kernel`` runs its attention
@@ -14,7 +15,9 @@
 loop. The paged pools (``[L, NB, bs, KVH, hd]``) and, for an int8/fp8
 pool, their scales (``k_scale``/``v_scale`` ``[L, NB, bs, KVH]``) are
 updated IN PLACE where the JAX package donated them to its jitted steps;
-the returned cache dicts hold the same tensors.
+so is an ssm stack's per-slot recurrent state (``ssm_state``
+``[L, B, H, P, N]`` f32, ``conv_state`` ``[L, B, W-1, di+2N]``). The
+returned cache dicts hold the same tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
 
@@ -33,12 +37,23 @@ from repro_torch.models import layers as L
 POOL_KEYS = ("k_pool", "v_pool", "k_scale", "v_scale")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.use_mla or cfg.is_encoder_decoder \
-            or cfg.uses_moe:
+def check_ported(cfg: ModelConfig) -> None:
+    """The stacks the port runs: dense GQA and the ssm (Mamba2) stack.
+    Hybrid, MoE, MLA and encoder-decoder archs are ROADMAP A9."""
+    if cfg.arch_type not in ("dense", "ssm") or cfg.use_mla \
+            or cfg.is_encoder_decoder or cfg.uses_moe:
         raise NotImplementedError(
-            f"repro_torch runs the dense GQA stack only, not "
-            f"{cfg.arch_type!r} (ROADMAP A9)")
+            f"repro_torch does not run {cfg.arch_type!r} stacks yet "
+            f"(hybrid, MoE, MLA and enc-dec are ROADMAP A9)")
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """Chunked prefill is the dense paged-attention stack's."""
+    check_ported(cfg)
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"chunked prefill covers the dense GQA stack, not "
+            f"{cfg.arch_type!r} (as in the JAX package)")
 
 
 def _layer(params: dict, l: int) -> dict:
@@ -66,9 +81,12 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     return_kv: bool, use_kernel: bool):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
     kvs or None)."""
-    _check_dense(cfg)
+    check_ported(cfg)
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
+    if cfg.arch_type == "ssm":
+        h, kvs = _ssm_stack_full(params, cfg, h, return_kv, use_kernel)
+        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     ks, vs = [], []
     for l in range(cfg.num_layers):
@@ -92,12 +110,35 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return hidden, kvs
 
 
+def _ssm_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                    return_kv: bool, use_kernel: bool):
+    """The Mamba2 layers over a full sequence: (h, (ssm_state
+    [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N]) or None)."""
+    ss, cs = [], []
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        x_in = L.rms_norm(h, lp["norm"], cfg.norm_eps)
+        if return_kv:
+            out, s_l, c_l = L.mamba2_mixer_full(
+                lp["mixer"], cfg, x_in, use_kernel=use_kernel,
+                return_state=True)
+            ss.append(s_l)
+            cs.append(c_l)
+        else:
+            out = L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
+                                      use_kernel=use_kernel)
+        h = h + out
+    return h, ((torch.stack(ss), torch.stack(cs)) if return_kv else None)
+
+
 def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  return_kv: bool = False, use_kernel: bool = False) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
-    kvs = (k, v) each [L, B, S, KVH, hd] (rope applied). ``use_kernel``
-    runs each layer's attention through the flash-attention wrapper
-    (forward only: it has no backward)."""
+    kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
+    stack, (ssm_state [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N])
+    for the ssm stack. ``use_kernel`` runs each layer's attention through
+    the flash-attention wrapper, or each Mamba2 layer's scan through the
+    SSD scan wrapper (forward only: neither has a backward)."""
     hidden, kvs = _forward_hidden(params, cfg, tokens, return_kv,
                                   use_kernel)
     out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
@@ -116,13 +157,27 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: dict, window_len: int,
                 use_kernel: bool = False) -> dict:
     """tokens [B, 1]; positions [B]; cache {k_pool, v_pool, block_tables,
-    and k_scale/v_scale for an int8/fp8 pool}.
+    and k_scale/v_scale for an int8/fp8 pool} for the dense stack,
+    {ssm_state, conv_state, ...} for the ssm stack.
 
     window_len: cache capacity in tokens (rolling buffer when the
-    sequence outgrows it). The pools are written in place. Returns
-    {logits [B, Vp], hidden [B, D], cache}."""
-    _check_dense(cfg)
+    sequence outgrows it). The pools, or the recurrent state, are written
+    in place (the state of every lane, as the JAX package's step does).
+    Returns {logits [B, Vp], hidden [B, D], cache}."""
+    check_ported(cfg)
     h = _embed(params, cfg, tokens)  # [B, 1, D]
+    if cfg.arch_type == "ssm":
+        for l in range(cfg.num_layers):
+            lp = _layer(params, l)
+            out, ns, nc = L.mamba2_mixer_decode(
+                lp["mixer"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
+                cache["ssm_state"][l], cache["conv_state"][l])
+            cache["ssm_state"][l] = ns
+            cache["conv_state"][l] = nc
+            h = h + out
+        hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
+        return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
+                "cache": dict(cache)}
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         layer_cache = {"block_tables": cache["block_tables"],
@@ -248,31 +303,45 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
                       num_blocks: Optional[int] = None,
                       kv_dtype: str = "bf16",
-                      device="cpu") -> dict:
+                      device=None) -> dict:
     """Zeroed paged pools [L, NB, bs, KVH, hd] plus default block tables
-    (sequence b owns blocks [b*bp, (b+1)*bp)). ``capacity`` = per-sequence
-    token capacity (the window); ``num_blocks`` sizes the shared pool.
-    ``kv_dtype`` selects the pool storage (f32|bf16|int8|fp8); the
-    quantized dtypes add ``k_scale``/``v_scale`` [L, NB, bs, KVH] of unit
-    f32 scales (see ``models.kv_quant``)."""
-    _check_dense(cfg)
+    (sequence b owns blocks [b*bp, (b+1)*bp)), on ``device`` (CUDA unless
+    the caller names the CPU). ``capacity`` = per-sequence token capacity
+    (the window); ``num_blocks`` sizes the shared pool. ``kv_dtype``
+    selects the pool storage (f32|bf16|int8|fp8); the quantized dtypes add
+    ``k_scale``/``v_scale`` [L, NB, bs, KVH] of unit f32 scales (see
+    ``models.kv_quant``). The ssm stack has no pools (no attention
+    layer) but the block tables, and per-slot recurrent state: zeroed
+    ``ssm_state`` [L, batch, H, P, N] f32 and ``conv_state``
+    [L, batch, W-1, di+2N] bf16, whatever the params' dtype (as in the
+    JAX package)."""
+    check_ported(cfg)
+    device = resolve_device(device)
     bs = cfg.kv_block_size
     bp = -(-capacity // bs)
     nb = num_blocks if num_blocks is not None else batch * bp
-    shape = (len(cfg.attention_layer_ids()), nb, bs, cfg.num_kv_heads,
-             cfg.head_dim)
-    dt = kv_quant.kv_pool_dtype(kv_dtype)
-    cache = {
-        "k_pool": torch.zeros(shape, dtype=dt, device=device),
-        "v_pool": torch.zeros(shape, dtype=dt, device=device),
-        "block_tables": (torch.arange(batch * bp, dtype=torch.int32,
-                                      device=device).reshape(batch, bp)
-                         % max(nb, 1)),
-    }
-    scales = kv_quant.init_scales(cfg, nb, kv_dtype, device=device)
-    if scales is not None:
-        cache["k_scale"] = scales
-        cache["v_scale"] = scales.clone()
+    cache = {"block_tables": (torch.arange(batch * bp, dtype=torch.int32,
+                                           device=device).reshape(batch, bp)
+                              % max(nb, 1))}
+    if cfg.attention_layer_ids():
+        shape = (len(cfg.attention_layer_ids()), nb, bs, cfg.num_kv_heads,
+                 cfg.head_dim)
+        dt = kv_quant.kv_pool_dtype(kv_dtype)
+        cache["k_pool"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v_pool"] = torch.zeros(shape, dtype=dt, device=device)
+        scales = kv_quant.init_scales(cfg, nb, kv_dtype, device=device)
+        if scales is not None:
+            cache["k_scale"] = scales
+            cache["v_scale"] = scales.clone()
+    if cfg.arch_type == "ssm":
+        L_ = cfg.num_layers
+        cache["ssm_state"] = torch.zeros(
+            (L_, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state_size),
+            dtype=torch.float32, device=device)
+        cache["conv_state"] = torch.zeros(
+            (L_, batch, cfg.ssm_conv_width - 1,
+             cfg.d_inner + 2 * cfg.ssm_state_size),
+            dtype=torch.bfloat16, device=device)
     return cache
 
 
@@ -283,7 +352,12 @@ def write_prefill_kv(cfg: ModelConfig, cache: dict, kvs,
     prompt_len <= capacity (slot = position). A quantized pool (the cache
     holds ``k_scale``/``v_scale``) takes each token's codes and scale,
     quantized against its own per-head absmax: the same bytes the chunked
-    and decode writes store for that token."""
+    and decode writes store for that token. For the ssm stack ``kvs`` is
+    the end state (ssm_state, conv_state) of the whole batch, which
+    replaces the cache's, dtypes included, as in the JAX package."""
+    if cfg.arch_type == "ssm":
+        cache["ssm_state"], cache["conv_state"] = kvs
+        return cache
     bt = cache["block_tables"].long()
     bs = cfg.kv_block_size
     k, v = kvs
@@ -350,7 +424,7 @@ def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
     """Mean next-token NLL over the labels inside [0, vocab_size) (the
-    others are masked). tokens/labels [B, S]. The dense stack has no
+    others are masked). tokens/labels [B, S]. Neither ported stack has an
     auxiliary loss (the JAX package adds its zero ``aux_loss``)."""
     hidden, _ = _forward_hidden(params, cfg, tokens, False, use_kernel)
     valid = (labels >= 0) & (labels < cfg.vocab_size)

@@ -19,6 +19,11 @@ What differs is the device side:
     (``kernels/``); on a CPU engine the same wrappers run their plain
     PyTorch versions. ``"auto"`` picks the kernels on CUDA, dense on the
     CPU;
+  * the ssm stack (mamba2) has no KV pool: its blocks are accounting
+    only, and its device state is one recurrent state per decode slot
+    (``ssm_state`` / ``conv_state``), written at admission, cleared at
+    release and updated in place by every decode iteration, as the JAX
+    engine does with its per-slot state;
   * the engine RNG is a ``torch.Generator`` on the engine's device.
 """
 from __future__ import annotations
@@ -465,9 +470,13 @@ class Engine:
         cache.pop("block_tables", None)
         return cache
 
-    def _split_prefill_kvs(self, kvs) -> Tuple[Optional[tuple], None]:
+    def _split_prefill_kvs(self, kvs) -> Tuple[Optional[tuple],
+                                               Optional[tuple]]:
         """forward_full(return_kv=True) output of a batch-1 prefill ->
-        (paged attention KV, per-slot recurrent state = None)."""
+        (paged attention KV | None, per-slot recurrent state | None)."""
+        if self.cfg.arch_type == "ssm":
+            ss, cs = kvs
+            return None, (ss[:, 0], cs[:, 0])
         k, v = kvs
         return (k[:, :1], v[:, :1]), None
 
@@ -485,14 +494,28 @@ class Engine:
         return cache
 
     def _write_slot_state(self, cache: dict, slot_state, slot: int) -> dict:
-        return cache  # the dense stack keeps no per-slot recurrent state
+        """Scatter a recurrent (ssm/conv) prefill end state into one decode
+        slot, in place (cast to the cache's dtypes: conv_state stays
+        bf16)."""
+        if slot_state is None:
+            return cache
+        ss, cs = slot_state
+        cache["ssm_state"][:, slot] = ss
+        cache["conv_state"][:, slot] = cs
+        return cache
 
     def _write_prefill(self, cache: dict, kvs, slot: int,
                        block_row: np.ndarray, seq_len: int) -> dict:
-        attn_kvs, _ = self._split_prefill_kvs(kvs)
-        return self._write_prefix_kv(cache, attn_kvs, block_row, seq_len)
+        """Scatter one trace's prefill KV/state into the shared pool."""
+        attn_kvs, slot_state = self._split_prefill_kvs(kvs)
+        cache = self._write_prefix_kv(cache, attn_kvs, block_row, seq_len)
+        return self._write_slot_state(cache, slot_state, slot)
 
     def _clear_slot_state(self, cache: dict, slot: int) -> dict:
+        """Zero a released slot's recurrent state, in place."""
+        if "ssm_state" in cache:
+            cache["ssm_state"][:, slot] = 0.0
+            cache["conv_state"][:, slot] = 0.0
         return cache
 
     # ------------------------------------------------------------------

@@ -10,7 +10,11 @@ Tolerances: f32 at 1e-4 (summation order); bf16 outputs at 1e-2 absolute
 plus 1e-2 relative (both sides accumulate in f32, the output is rounded
 to bf16, one ulp is 2^-8 relative); scores at 1e-5 (f32 throughout). The
 int8/fp8 pools dequantize to the same f32 values on both sides (codes
-times bf16-grid scales are exact), so they take the same tolerances.
+times bf16-grid scales are exact), so they take the same tolerances. The
+SSD scan at 2e-3 absolute plus relative, as tests/test_kernels.py holds
+the Pallas kernel to the sequential recurrence (the chunked form
+exponentiates cumsum differences instead of multiplying per-step decays;
+outputs reach ~5e2 at full width).
 """
 import math
 
@@ -25,8 +29,10 @@ from repro_torch.data.tokenizer import get_tokenizer  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as sd  # noqa: E402
 from repro_torch.kernels import step_score as ss  # noqa: E402
 from repro_torch.models import kv_quant  # noqa: E402
+from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.init import init_params  # noqa: E402
 from repro_torch.serving import engine as te  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
@@ -119,7 +125,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "paged_attention_prefill": 0,
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
-                                   "step_score": 0, "flash_attention": 0}
+                                   "step_score": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}
 
 
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -282,3 +289,118 @@ def test_engine_kernel_path_matches_dense_on_card(gen):
 def _f32(tree):
     return {k: _f32(v) if isinstance(v, dict) else v.float()
             for k, v in tree.items()}
+
+
+def _ssd_inputs(g, B, S, H, P, N, stress=False):
+    """x, dt, A, Bm, Cm in f32. ``stress``: the init's A = -(1..H) with
+    large steps, so cs falls thousands below zero inside a chunk."""
+    x = torch.randn(B, S, H, P, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device="cuda") + (1.0 if stress
+                                                            else 0.0))
+    A = (-torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+         if stress else -torch.exp(torch.randn(H, generator=g,
+                                               device="cuda")))
+    Bm = torch.randn(B, S, N, generator=g, device="cuda")
+    Cm = torch.randn(B, S, N, generator=g, device="cuda")
+    return x, dt, A, Bm, Cm
+
+
+SSD_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,stress", [
+    (1, 64, 2, 8, 16, 16, False), (2, 128, 6, 16, 32, 32, False),
+    (1, 256, 4, 32, 64, 128, False), (2, 96, 5, 16, 32, 32, False),
+    (2, 33, 8, 32, 16, 64, False), (1, 512, 80, 64, 128, 256, True),
+    (2, 64, 8, 32, 16, 32, True)])
+def test_ssd_kernel_matches_plain(gen, B, S, H, P, N, chunk, stress):
+    """The JAX test shapes (one with a head group that does not divide
+    H), a chunk of 33 (S under the chunk), and the full-width heads with
+    the init's steep decays."""
+    args = _ssd_inputs(gen, B, S, H, P, N, stress)
+    ops.reset_launch_counts()
+    y, h = sd.ssd_scan(*args, chunk=chunk, head_group=4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == 1
+    yp, hp = sd.ssd_scan_plain(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y, yp, **SSD_TOL)
+    torch.testing.assert_close(h, hp, **SSD_TOL)
+
+
+def test_ssd_kernel_padded_sequence(gen):
+    """S = 1000 padded to 1024 with dt = 0, as the mixer pads, with the
+    init's steep decays (|cs| reaches ~1e4 in a chunk): the kernel's y on
+    the real positions and its final state equal the plain recurrence
+    over the unpadded sequence."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 1000, 80, 64, 128, stress=True)
+    pad = [torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2) + [0, 24])
+           for t in (x, dt, Bm, Cm)]
+    y, h = sd.ssd_scan(pad[0], pad[1], A, pad[2], pad[3], chunk=256)
+    yp, hp = sd.ssd_scan_plain(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y[:, :1000], yp, **SSD_TOL)
+    torch.testing.assert_close(h, hp, **SSD_TOL)
+    assert not y[:, 1000:].any()
+
+
+def test_ssd_kernel_refusals_and_no_backward(gen):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 2, 8, 16)
+    with pytest.raises(ValueError, match="f32"):
+        sd.ssd_scan(x.bfloat16(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        sd.ssd_scan(*_ssd_inputs(gen, 1, 1024, 2, 8, 16), chunk=512)
+    y, _ = sd.ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        y.sum().backward()
+
+
+def test_mamba2_forward_kernel_matches_dense_on_card(gen):
+    """``forward_full(use_kernel=True)`` of the mamba2 smoke config, f32
+    params: one K4 launch per layer, logits and end state within 1e-4 of
+    the dense chunked forward."""
+    cfg = serving_config("mamba2-2.7b")
+    params = _f32(init_params(cfg, gen))
+    toks = torch.randint(0, cfg.vocab_size, (2, 75), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        dense = tm.forward_full(params, cfg, toks, return_kv=True)
+        ops.reset_launch_counts()
+        got = tm.forward_full(params, cfg, toks, return_kv=True,
+                              use_kernel=True)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == cfg.num_layers
+    torch.testing.assert_close(got["logits"], dense["logits"], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got["kvs"][0], dense["kvs"][0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_mamba2_engine_kernel_path_matches_dense_on_card(gen):
+    """mamba2 smoke on the card, f32 params, greedy STEP under memory
+    pressure: the kernel engine (the fused scorer) and the dense engine
+    give identical tokens and statuses, step scores within 1e-5."""
+    cfg = serving_config("mamba2-2.7b")
+    params = _f32(init_params(cfg, gen))
+    scorer = init_scorer(gen, cfg.d_model)
+    prompt = get_tokenizer().encode("3+5-2=", add_bos=True)
+    results = {}
+    for use_kernel in (True, False):
+        ecfg = te.EngineConfig(
+            max_batch=8, num_blocks=16, capacity=128, max_new_tokens=40,
+            sampling=SamplingParams(temperature=0.0, top_k=0, top_p=1.0,
+                                    max_new_tokens=40),
+            use_kernel=use_kernel, decode_horizon=4, faults=None)
+        eng = te.Engine(params, cfg, ecfg, make_policy("step"),
+                        scorer_params=scorer)
+        ops.reset_launch_counts()
+        results[use_kernel] = eng.serve(prompt, 8)
+        assert (ops.launch_counts()["step_score"] > 0) == use_kernel
+        assert eng.pool_drained()
+    k, d = results[True], results[False]
+    assert k.num_pruned == d.num_pruned > 0
+    for tk, td in zip(k.traces, d.traces):
+        assert tk.output_tokens == td.output_tokens
+        assert tk.status == td.status
+        for a, b in zip(tk.step_scores, td.step_scores):
+            assert abs(a - b) <= 1e-5

@@ -61,8 +61,8 @@ def make_setup(dt):
     prompts = [tok.encode(make_prompt(p), add_bos=True)
                for p in make_problems(3, seed=11)]
     return {"jcfg": jcfg, "cfg": serving_config(), "jp": jp, "js": js,
-            "tp": params_from_numpy(jax.device_get(jp)),
-            "ts": scorer_from_numpy(jax.device_get(js)),
+            "tp": params_from_numpy(jax.device_get(jp), device="cpu"),
+            "ts": scorer_from_numpy(jax.device_get(js), device="cpu"),
             "prompts": prompts, "kv_dtype": dt}
 
 

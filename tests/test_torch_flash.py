@@ -88,7 +88,7 @@ def models():
     jcfg, cfg = j_serving_config(), serving_config()
     jp = jax.tree.map(lambda x: x.astype(jnp.float32),
                       j_init_params(jcfg, jax.random.PRNGKey(0)))
-    return jcfg, cfg, jp, params_from_numpy(jax.device_get(jp))
+    return jcfg, cfg, jp, params_from_numpy(jax.device_get(jp), device="cpu")
 
 
 @pytest.mark.parametrize("S", [16, 256])

@@ -106,7 +106,7 @@ def test_decode_layer_after_wraparound_matches_jax():
                            j_init_params(jcfg, jax.random.PRNGKey(0)))
     jlp = jax.tree.map(lambda x: x[0], jparams["layers"])["attn"]
     tlp = {k: v[0] for k, v in params_from_numpy(
-        jax.device_get(jparams))["layers"]["attn"].items()}
+        jax.device_get(jparams), device="cpu")["layers"]["attn"].items()}
     B, window_len, bs = 2, 32, cfg.kv_block_size
     bp = window_len // bs
     rs = np.random.RandomState(1)
@@ -162,7 +162,7 @@ def test_step_score_matches_scorer_module():
     """Wrapper (CPU -> plain) == core.scorer.scorer_score, both packages,
     on a bf16 hidden (cast to f32 inside, as the fused kernel does)."""
     jp = j_init_scorer(jax.random.PRNGKey(1), 128)
-    tp = scorer_from_numpy(jax.device_get(jp))
+    tp = scorer_from_numpy(jax.device_get(jp), device="cpu")
     h = np.random.RandomState(2).randn(16, 128).astype(np.float32)
     jh, th = pair(h, "bf16")
     got = ops.step_score_params(th, tp)
@@ -182,4 +182,5 @@ def test_cpu_wrappers_count_no_launch():
                                    "paged_attention_prefill": 0,
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
-                                   "step_score": 0, "flash_attention": 0}
+                                   "step_score": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}

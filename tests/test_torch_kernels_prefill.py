@@ -123,7 +123,7 @@ def test_prefill_chunk_layer_matches_jax():
                            j_init_params(jcfg, jax.random.PRNGKey(0)))
     jlp = jax.tree.map(lambda x: x[0], jparams["layers"])["attn"]
     tlp = {k: v[0] for k, v in params_from_numpy(
-        jax.device_get(jparams))["layers"]["attn"].items()}
+        jax.device_get(jparams), device="cpu")["layers"]["attn"].items()}
     B, C, cap, bs = 1, 5, 64, cfg.kv_block_size
     bp = cap // bs
     rs = np.random.RandomState(2)

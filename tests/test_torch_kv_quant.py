@@ -231,7 +231,7 @@ def test_cache_carries_scales_through_prefill_and_cow():
     jcache = j_model.init_decode_cache(jc, 2, 32, num_blocks=6,
                                        kv_dtype="int8")
     tcache = t_model.init_decode_cache(tc, 2, 32, num_blocks=6,
-                                       kv_dtype="int8")
+                                       kv_dtype="int8", device="cpu")
     assert set(tcache) == set(jcache)
     L_, S = len(tc.attention_layer_ids()), 20
     kvs = [_values(9 + i, (L_, 2, S, tc.num_kv_heads, tc.head_dim))

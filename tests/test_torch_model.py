@@ -52,8 +52,8 @@ def models():
     for dt in ("f32", "bf16"):
         p = jp if dt == "bf16" else jax.tree.map(
             lambda x: x.astype(jnp.float32), jp)
-        out[dt] = (p, params_from_numpy(jax.device_get(p)))
-    return jcfg, cfg, out, (js, scorer_from_numpy(jax.device_get(js)))
+        out[dt] = (p, params_from_numpy(jax.device_get(p), device="cpu"))
+    return jcfg, cfg, out, (js, scorer_from_numpy(jax.device_get(js), device="cpu"))
 
 
 def _tokens(B, S, seed=0):
@@ -249,7 +249,8 @@ def test_write_prefill_and_copy_block_match(models):
         np.testing.assert_allclose(to_np(tc[key]), to_np(jc[key]),
                                    **HIDDEN_TOL["f32"])
         assert torch.equal(tc[key][:, 5], tc[key][:, 4])
-    cache = tm.init_decode_cache(cfg, 2, CAP, num_blocks=9, kv_dtype="f32")
+    cache = tm.init_decode_cache(cfg, 2, CAP, num_blocks=9, kv_dtype="f32",
+                                 device="cpu")
     jcache = jm.init_decode_cache(jcfg, 2, CAP, num_blocks=9, kv_dtype="f32")
     assert cache["block_tables"].tolist() == \
         np.asarray(jcache["block_tables"]).tolist()

@@ -79,7 +79,7 @@ def models():
 
 
 def _bridge(jp):
-    return params_from_numpy(jax.device_get(jp))
+    return params_from_numpy(jax.device_get(jp), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -100,13 +100,13 @@ def test_adamw_matches_jax(moment_dtype, grad_clip):
     topt = t_opt.AdamW(**dict(kw, learning_rate=t_opt.cosine_schedule(
         1e-2, 1, 5)))
     jp = jax.tree.map(jnp.asarray, params)
-    tp = params_from_numpy(params)
+    tp = params_from_numpy(params, device="cpu")
     js, ts = jopt.init(jp), topt.init(tp)
     for step in range(3):
         grads = jax.tree.map(lambda s: 3 * rs.randn(*s).astype(np.float32),
                              shapes, is_leaf=lambda x: isinstance(x, tuple))
         jp, js = jopt.update(jax.tree.map(jnp.asarray, grads), js, jp)
-        tp, ts = topt.update(params_from_numpy(grads), ts, tp)
+        tp, ts = topt.update(params_from_numpy(grads, device="cpu"), ts, tp)
     assert ts.step == int(js.step) == 3
     _assert_trees_close(tp, jp, OPT_TOL)
     _assert_trees_close(ts.mu, js.mu, OPT_TOL)
@@ -223,7 +223,7 @@ def test_train_scorer_matches_jax():
     cfg = dict(batch_size=32, max_epochs=4, learning_rate=3e-3)
     jparams, jinfo = j_scorer.train_scorer(
         h, y, j_scorer.ScorerTrainConfig(**cfg), params=jinit)
-    tinit = scorer_from_numpy(jax.device_get(jinit))
+    tinit = scorer_from_numpy(jax.device_get(jinit), device="cpu")
     tparams, tinfo = t_scorer.train_scorer(
         h, y, t_scorer.ScorerTrainConfig(**cfg), params=tinit, device="cpu")
     assert tinfo["alpha"] == jinfo["alpha"]
@@ -248,7 +248,7 @@ def test_weighted_bce_and_early_stopping():
     overshoots, early stopping returns the best epoch, not the last."""
     h, y = _scorer_data(1, M=64)
     jp = j_scorer.init_scorer(jax.random.PRNGKey(4), h.shape[1])
-    tp = scorer_from_numpy(jax.device_get(jp))
+    tp = scorer_from_numpy(jax.device_get(jp), device="cpu")
     np.testing.assert_allclose(
         float(t_scorer.weighted_bce_loss(tp, torch.from_numpy(h),
                                          torch.from_numpy(y), 1.7)),
