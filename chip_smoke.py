@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
 
   1. device   — the card's name, count, and nvidia-smi's power limit;
   2. build    — nvcc builds every kernel from ``src/repro_torch/csrc``
-                (in parallel) and reports registers and spills;
+                (in parallel) and reports registers and spills, and the
+                HMMA/HGMMA (tensor-core) instructions in each library's
+                SASS where ``cuobjdump`` exists;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main path's full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a, K1b) and over
@@ -31,7 +33,9 @@ Phases, each printing one JSON line:
                 ``build_step_scorer`` and a STEP serve with that scorer;
   9. times    — device time of each kernel, its plain version and the
                 library yardstick (one CUDA-graph replay per timed call,
-                cold L2), and each kernel's bound;
+                cold L2), and each kernel's bound; also K1a over long
+                rows (``paged_attention_decode_long``, 16 lanes of
+                1024-4096 slots), on this line only;
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay;
  11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
@@ -144,6 +148,35 @@ def phase_device():
     return info
 
 
+def cuobjdump():
+    """The CUDA toolkit's cuobjdump, or the copy Triton ships, or None."""
+    import importlib.util
+    import shutil
+    found = shutil.which("cuobjdump")
+    candidates = [found] if found else []
+    candidates.append("/usr/local/cuda/bin/cuobjdump")
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(str(Path(spec.origin).parent / "backends"
+                              / "nvidia" / "bin" / "cuobjdump"))
+    return next((c for c in candidates if Path(c).exists()), None)
+
+
+def tensor_core_instructions(build, names):
+    """{source: {"HMMA": n, "HGMMA": n}} counted in each library's SASS,
+    or "not available" without cuobjdump."""
+    tool = cuobjdump()
+    if tool is None:
+        return "not available"
+    counts = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(build._target(name))],
+                              capture_output=True, text=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass))
+                        for op in ("HMMA", "HGMMA")}
+    return counts
+
+
 def phase_build(ops):
     t0 = time.perf_counter()
     logs = ops.build_kernels()
@@ -155,7 +188,12 @@ def phase_build(ops):
                          r" registers", log, flags=re.S)
         summary[src] = [{"function": f, "spills": s.strip(),
                          "registers": int(r)} for f, s, r in fns]
-    emit("build", seconds=round(seconds, 3), ptxas=summary)
+    tc = tensor_core_instructions(ops.build, ops.SOURCES)
+    emit("build", seconds=round(seconds, 3), ptxas=summary,
+         tensor_core_instructions=tc)
+    if tc != "not available":
+        check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
+              > 0, "K3 has no tensor-core instruction")
     return seconds
 
 
@@ -719,7 +757,11 @@ def time_cuda(fn, reps=30, warmup=3):
     plain version's op-by-op launches, would otherwise sit between the
     events while the device idles). The 50 MB L2 is flushed before each
     replay: the decode loop finds a layer's pages cold (35 other layers
-    and the weights pass through L2 in between)."""
+    and the weights pass through L2 in between). A spin kernel of about
+    0.1 ms then keeps the device busy while the host enqueues the start
+    event, the replay and the end event, so that the events do not also
+    hold the host's submission of the replay (without it, a one-element
+    add measured 0.014-0.016 ms)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -733,6 +775,7 @@ def time_cuda(fn, reps=30, warmup=3):
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)   # GPU cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -784,6 +827,35 @@ def phase_times(pa, ss, fa, sd, kvq):
         shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
               f"{lens[-1]} bf16",
         bytes=nbytes, flops=flops, dtype=bf)
+
+    # K1a over long rows: 16 lanes of 1024-4096 slots (bp = 256, ~41k
+    # live slots, ~168 MB of pages); SDPA over the gathered K/V
+    Bl, bpl = 16, 256
+    lens_l = [1024 + (3072 * i) // (Bl - 1) for i in range(Bl)]
+    q, kp, vp, bt, cl = decode_inputs(g, Bl, H, KVH, hd, bpl, lens_l, bf)
+    pages = sum(-(-n // page) for n in lens_l)
+    Sl = bpl * page
+    kd = pa.gather_pages(kp, bt).transpose(1, 2).contiguous()
+    vd = pa.gather_pages(vp, bt).transpose(1, 2).contiguous()
+    mask = (torch.arange(Sl, device="cuda")[None, :] < cl[:, None])[
+        :, None, None, :]
+    q4 = q[:, :, None, :]
+    rows["paged_attention_decode_long"] = dict(
+        ms=time_cuda(lambda: pa.paged_attention(q, kp, vp, bt, cl,
+                                                scale=scale)),
+        plain_ms=time_cuda(lambda: pa.paged_attention_plain(q, kp, vp, bt,
+                                                            cl, scale)),
+        library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
+        library="SDPA over K/V gathered beforehand",
+        splits=pa.split_count(bpl, Bl * KVH),
+        shape=f"B={Bl} H={H} KVH={KVH} hd={hd} bp={bpl} lens={lens_l[0]}.."
+              f"{lens_l[-1]} bf16",
+        bytes=(2 * q.numel() * 2 + bt.numel() * 4 + cl.numel() * 4
+               + 2 * pages * page * KVH * hd * 2),
+        flops=4 * hd * H * sum(lens_l), dtype=bf)
+    del q, kp, vp, bt, cl, kd, vd, mask, q4
+    torch.cuda.empty_cache()
 
     # K1b at the batched phase's chunk shape: C = 16 over a 64-token prefix
     C, prefix = 16, 64
@@ -919,6 +991,7 @@ def phase_times(pa, ss, fa, sd, kvq):
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 r.pop("dtype"))
+        r["bound_share"] = r["bound_ms"] / r["ms"]
     emit("times", **rows)
     return rows
 

@@ -3,8 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` compiles on its own into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), under ``build/repro_torch/`` at the root of the checkout.
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is.
+The file name carries a hash of the source, of the ``csrc/*.cuh`` headers
+it includes and of the flags, so an edited source or header rebuilds and
+an unchanged one is loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module, and
 nothing looks for ``nvcc`` until a kernel is first launched on a CUDA
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,9 +40,23 @@ def nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/*.cuh`` headers it includes
+    (``#include "x.cuh"``, followed through the headers), in order."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"',
+                              path.read_text(), flags=re.M):
+            header = CSRC / inc
+            if header not in seen:
+                seen.append(header)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

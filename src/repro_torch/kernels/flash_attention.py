@@ -6,7 +6,10 @@ The kernel replaces the TPU kernel
 ``[B, H, S, hd]`` with the kv heads already broadcast, an optional causal
 mask and sliding ``window``, f32 scores, softmax and P.V, the output in
 q's dtype. A row with no visible key emits zeros. ``forward_full(...,
-use_kernel=True)`` reaches it once per layer.
+use_kernel=True)`` reaches it once per layer. In bf16 the kernel runs on
+the tensor cores and rounds P to bf16 before P.V, as ``mha_ref`` does
+(``paged_attention.tiled_softmax_pv`` with ``p_dtype=torch.bfloat16`` is
+that algebra); in f32 it computes in f32 throughout.
 
 The JAX package has no backward for this kernel (``jax.grad`` through it
 fails) and trains with ``use_kernel=False``; the port keeps that: the

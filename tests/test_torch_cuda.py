@@ -8,9 +8,13 @@ only the port's dependencies are installed:
 
 Tolerances: f32 at 1e-4 (summation order); bf16 outputs at 1e-2 absolute
 plus 1e-2 relative (both sides accumulate in f32, the output is rounded
-to bf16, one ulp is 2^-8 relative); scores at 1e-5 (f32 throughout). The
-int8/fp8 pools dequantize to the same f32 values on both sides (codes
-times bf16-grid scales are exact), so they take the same tolerances. The
+to bf16, one ulp is 2^-8 relative; on the tensor cores the flash kernel
+and the bf16 prefill face also round P to bf16 before P.V, as
+``ref.py::mha_ref`` does, where the plain versions keep P in f32); scores
+at 1e-5 (f32 throughout). The int8/fp8 pools take the same tolerances:
+the kernel folds the per-slot scales into the scores and into p, the
+plain versions dequantize the codes, the same values up to f32 rounding
+order. The
 SSD scan at 2e-3 absolute plus relative, as tests/test_kernels.py holds
 the Pallas kernel to the sequential recurrence (the chunked form
 exponentiates cumsum differences instead of multiplying per-step decays;
@@ -183,6 +187,76 @@ def test_prefill_quant_kernel_matches_plain(gen, kv_dtype, dtype, C, prefix,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+POOLS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+         "fp8": torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("hd,KVH,G", [(128, 2, 4), (64, 4, 2)])
+def test_decode_kernel_long_rows_split_pages(gen, pool, page, hd, KVH, G):
+    """Decode over 256-page block-table rows: lengths 0, 1, a page
+    boundary, a full row and up to 4096 slots, so the page range of each
+    lane is cut into parts (split-K) and merged."""
+    B, bp = 6, 256
+    full = bp * page
+    lens = torch.tensor([0, 1, page, 3 * page + 1, full, min(4096, full)
+                         - 5], dtype=torch.int32, device="cuda")
+    assert pa.split_count(bp, B * KVH) > 1
+    dtype = torch.float32 if pool == "f32" else torch.bfloat16
+    q = torch.randn(B, KVH * G, hd, generator=gen, device="cuda").to(dtype)
+    scales = {}
+    if pool in QUANT:
+        kp, vp, bt, ks, vs = _quant_pools(gen, B, bp, KVH, hd, pool, page)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, bt = _pools(gen, B, bp, KVH, hd, POOLS[pool], page)
+    scale = 1.0 / math.sqrt(hd)
+    ops.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=scale, **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, scale,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = "decode_quant" if scales else "decode"
+    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("C,prefix,nvalid", [(1, 300, 1), (16, 300, 13),
+                                             (64, 200, 64)])
+def test_prefill_tensor_core_face(gen, pool, C, prefix, nvalid):
+    """bf16 queries over a bf16/int8/fp8 pool take the tensor-core face:
+    C in {1, 16, 64} over a prefix longer than the window of 128, so the
+    window's edge crosses the pooled tiles."""
+    KVH, G, hd, bp = 8, 4, 128, 32
+    q = torch.randn(1, C, KVH * G, hd, generator=gen, device="cuda")
+    own = [torch.randn(1, C, KVH, hd, generator=gen, device="cuda")
+           .to(torch.bfloat16) for _ in range(2)]
+    scales = {}
+    if pool in QUANT:
+        kp, vp, bt, ks, vs = _quant_pools(gen, 1, bp, KVH, hd, pool)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, bt = _pools(gen, 1, bp, KVH, hd, torch.bfloat16)
+    pl = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    nv = torch.tensor([nvalid], dtype=torch.int32, device="cuda")
+    args = (q.to(torch.bfloat16), kp, vp, bt, pl, nv, *own)
+    ops.reset_launch_counts()
+    got = pa.paged_attention_prefill(*args, scale=0.1, window=128, **scales)
+    want = pa.paged_attention_prefill_plain(*args, 0.1, 128,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = "prefill_quant" if scales else "prefill"
+    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert bool((got[0, nvalid:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_quant_wrapper_rejects_missing_scales(gen):
     kq, vq, bt, ks, vs = _quant_pools(gen, 2, 2, 2, 64, "int8")
     q = torch.randn(2, 4, 64, generator=gen, device="cuda")
@@ -209,6 +283,21 @@ def test_flash_kernel_matches_plain(gen, dtype, causal, window, B, H, S, hd):
     assert ops.launch_counts()["flash_attention"] == 1
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 128])
+def test_flash_kernel_long_sequence(gen, window):
+    """The main path's sequence length on the tensor cores: S = 2048,
+    hd 128, bf16, causal, with and without a window."""
+    q, k, v = (torch.randn(1, 8, 2048, 128, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 def test_flash_kernel_has_no_backward(gen):

@@ -82,37 +82,36 @@ def test_prefill_plain_bf16():
 
 
 def test_wrapper_reshapes_agree_with_plain():
-    """The CUDA wrapper's query tile ([B, C, H, hd] -> [B, KVH, C*G, hd],
-    row c*G + g = chunk token c, head kvh*G + g) and its inverse, checked
-    by computing the flattened tile row by row the way the kernel does."""
+    """The CUDA kernel's query rows: row r of kv head h's tile is chunk
+    token r // G, query head h*G + r % G, read and written in place in
+    the [B, C, H, hd] layout. Checked by computing the tile row by row
+    the way the kernel does; at decode (C = 1) the rows of a kv head are
+    its G heads of q [B, H, hd]."""
     B, C, KVH, G, page, bp = 2, 5, 2, 4, 8, 3
     jargs, targs = prefill_case(9, B, C, KVH, G, page, bp, starts=[11, 3],
                                  nvalid=[5, 2])
     q, kp, vp, bt, pl, nv, ok, ov = targs
-    qf = pa.flatten_queries(q, KVH)
-    assert qf.shape == (B, KVH, C * G, 32)
-    torch.testing.assert_close(pa.unflatten_queries(qf, C), q, rtol=0,
-                               atol=0)
     kc, vc = pa.gather_pages(kp, bt), pa.gather_pages(vp, bt)
-    out = torch.zeros_like(qf)
+    got = torch.zeros_like(q)
     for b in range(B):
         for h in range(KVH):
             for r in range(C * G):
-                c = r // G   # the kernel's row -> chunk token
+                c, head = r // G, h * G + r % G   # the kernel's row map
                 keys = torch.cat([kc[b, :pl[b], h], ok[b, :c + 1, h]])
                 vals = torch.cat([vc[b, :pl[b], h], ov[b, :c + 1, h]])
                 if c >= nv[b]:
                     continue   # padded query: zeros
-                p = torch.softmax(keys @ qf[b, h, r] * 0.3, dim=0)
-                out[b, h, r] = p @ vals
-    got = pa.unflatten_queries(out, C)
+                p = torch.softmax(keys @ q[b, c, head] * 0.3, dim=0)
+                got[b, c, head] = p @ vals
     want = pa.paged_attention_prefill_plain(q, kp, vp, bt, pl, nv, ok, ov,
                                             0.3)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    # decode: C = 1 and the tile is a view of q
+    # decode: C = 1, row r of kv head h is query head h*G + r
     qd = q[:, 0].contiguous()
-    assert torch.equal(pa.flatten_queries(qd[:, None], KVH),
-                       qd.reshape(B, KVH, G, 32))
+    rows = qd[:, None].reshape(B, 1, KVH, G, 32)
+    for h in range(KVH):
+        for r in range(G):
+            assert torch.equal(rows[:, 0, h, r], qd[:, h * G + r])
 
 
 def test_prefill_chunk_layer_matches_jax():
