@@ -7,9 +7,10 @@ Phases, each printing one JSON line:
 
   1. device   — the card's name, count, and nvidia-smi's power limit;
   2. build    — nvcc builds every kernel from ``src/repro_torch/csrc``
-                (in parallel) and reports registers and spills, and the
-                HMMA/HGMMA (tensor-core) instructions in each library's
-                SASS where ``cuobjdump`` exists;
+                (in parallel) and reports registers and spills (also in
+                short per kernel for the scorer's and the SSD scan's
+                passes), and the HMMA/HGMMA (tensor-core) instructions in
+                each library's SASS where ``cuobjdump`` exists;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main path's full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a, K1b) and over
@@ -35,7 +36,9 @@ Phases, each printing one JSON line:
                 library yardstick (one CUDA-graph replay per timed call,
                 cold L2), and each kernel's bound; also K1a over long
                 rows (``paged_attention_decode_long``, 16 lanes of
-                1024-4096 slots), on this line only;
+                1024-4096 slots) and K2 at the kernels phase's 64 lanes
+                (``step_score_b64``), on this line only, and the device
+                time of each launch inside K2 and K4 (torch.profiler);
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay;
  11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
@@ -177,6 +180,23 @@ def tensor_core_instructions(build, names):
     return counts
 
 
+def registers_spills(fns):
+    """ptxas entries of one source -> {kernel: {"registers": n,
+    "spill_bytes": stores + loads}}, the kernel named short."""
+    out = {}
+    for f in fns:
+        m = re.search(r"\d([a-z_]+_kernel)", f["function"])
+        name = m.group(1) if m else f["function"]
+        if "bfloat16" in f["function"]:
+            name += "<bf16>"
+        elif "IfE" in f["function"]:
+            name += "<f32>"
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                             f["spills"])]
+        out[name] = {"registers": f["registers"], "spill_bytes": sum(spills)}
+    return out
+
+
 def phase_build(ops):
     t0 = time.perf_counter()
     logs = ops.build_kernels()
@@ -190,6 +210,8 @@ def phase_build(ops):
                          "registers": int(r)} for f, s, r in fns]
     tc = tensor_core_instructions(ops.build, ops.SOURCES)
     emit("build", seconds=round(seconds, 3), ptxas=summary,
+         registers_spills={src: registers_spills(summary.get(src, []))
+                           for src in ("step_score", "ssd_scan")},
          tensor_core_instructions=tc)
     if tc != "not available":
         check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
@@ -786,6 +808,31 @@ def time_cuda(fn, reps=30, warmup=3):
     return total / reps
 
 
+def device_split(fn):
+    """Device ms of each CUDA kernel that one call of ``fn`` launches
+    (``torch.profiler``; L2 flushed before the call, which runs eagerly),
+    or "not measured" with the reason where the profiler records no
+    device time. Diagnostic only: no check reads it."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    try:
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or 0
+            m = re.search(r"(\w+_kernel)", e.key)
+            if t > 0 and m and "anonymous namespace" in e.key:
+                rows[m.group(1)] = t / 1e3   # us -> ms
+        return rows or "not measured: no device time recorded"
+    except RuntimeError as err:
+        return f"not measured: {err}"
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -964,9 +1011,20 @@ def phase_times(pa, ss, fa, sd, kvq):
         ms=time_cuda(lambda: ss.step_score(h, w1, b1, w2, b2)),
         plain_ms=time_cuda(lambda: ss.step_score_plain(h, w1, b1, w2, b2)),
         library_ms=None,
+        launches_ms=device_split(lambda: ss.step_score(h, w1, b1, w2, b2)),
         shape=f"B={B} D={D} hidden={Hd} bf16 hidden, f32 weights",
         bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
         flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
+    # the same at the kernels phase's 64 lanes (this line only)
+    h64 = torch.randn(64, D, generator=g, device="cuda").to(bf)
+    rows["step_score_b64"] = dict(
+        ms=time_cuda(lambda: ss.step_score(h64, w1, b1, w2, b2)),
+        plain_ms=time_cuda(lambda: ss.step_score_plain(h64, w1, b1, w2,
+                                                       b2)),
+        library_ms=None,
+        shape=f"B=64 D={D} hidden={Hd} bf16 hidden, f32 weights",
+        bytes=h64.numel() * 2 + (w1.numel() + 2 * Hd + 1 + 64) * 4,
+        flops=2 * 64 * D * Hd + 4 * 64 * Hd, dtype=torch.float32)
 
     # K4 at forward_ssd's shape: B = 1, S = 2048, H = 80, P = 64, N = 128,
     # chunk 256, f32. Operations: C.B^T once per chunk (lower triangle),
@@ -985,6 +1043,8 @@ def phase_times(pa, ss, fa, sd, kvq):
         plain_ms=time_cuda(lambda: sd.ssd_scan_plain(x, dt, A, Bm, Cm),
                            reps=5, warmup=1),
         library_ms=None, library="none (no single call)",
+        launches_ms=device_split(lambda: sd.ssd_scan(x, dt, A, Bm, Cm,
+                                                     chunk=ls)),
         shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={Ns} chunk={ls} f32",
         bytes=nbytes, flops=flops, dtype=torch.float32)
 

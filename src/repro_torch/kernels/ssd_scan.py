@@ -16,9 +16,12 @@ The JAX kernel has no backward (``jax.grad`` through it fails) and the
 JAX package trains with ``use_kernel=False``; the port keeps that: the
 wrapper is a ``torch.autograd.Function`` whose backward raises.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises (no fallback), adding one to
-``LAUNCHES["ssd_scan"]``.
+The kernel runs as five launches of the SSD decomposition (the in-chunk
+cumsum, C.B^T per chunk, the chunk states, the state passing in chunk
+order, the chunk outputs), each parallel over (batch row, chunk, head);
+see ``csrc/ssd_scan.cu``. On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches the kernel or raises (no fallback),
+adding one to ``LAUNCHES["ssd_scan"]`` per call.
 """
 from __future__ import annotations
 
@@ -30,9 +33,9 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = {"ssd_scan": 0}
-MAX_CHUNK = 256    # the kernel stages one chunk of dt*x in shared memory
-MAX_HEAD_DIM = 64  # P: per-thread accumulators of the output tile
-MAX_STATE = 128    # N: per-thread accumulators of the [P, N] state
+MAX_CHUNK = 256    # the cumsum pass stages one chunk of dt in shared memory
+MAX_HEAD_DIM = 64  # P: one output tile's width of warp tiles
+MAX_STATE = 128    # N: one chunk state's width of warp tiles
 _lib = None
 
 
@@ -63,7 +66,7 @@ def _library():
     if _lib is None:
         lib = build.load("ssd_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_ssd_scan.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.repro_ssd_scan.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.repro_ssd_scan.restype = i
         _lib = lib
     return _lib
@@ -93,13 +96,17 @@ def _launch(x, dt, A, Bm, Cm, chunk: int):
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     nc = S // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cs = torch.empty((B, nc, H, chunk), **f32)  # in-chunk cumsum of dt*A
     # C.B^T of each chunk, once for all heads (lower triangle only)
-    cb = torch.empty((B, nc, chunk, chunk), dtype=torch.float32,
-                     device=x.device)
+    cb = torch.empty((B, nc, chunk, chunk), **f32)
+    # each chunk's own state, then (in place) the state entering it
+    st = torch.empty((B, nc, H, P, N), **f32)
     err = _library().repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), cb.data_ptr(), B, S, H,
-        P, N, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), cs.data_ptr(),
+        cb.data_ptr(), st.data_ptr(), B, S, H, P, N, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
@@ -134,8 +141,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     zero state (``initial_state`` must be None; decode uses the one-step
     recurrence) and S must be a multiple of ``min(chunk, S)``.
     ``head_group`` is the TPU kernel's VMEM blocking of heads; the CUDA
-    kernel runs one CTA per (batch row, head) and computes C.B^T once per
-    chunk for all heads, so it only checks that the group is positive."""
+    kernel runs its passes over (batch row, chunk, head) and computes
+    C.B^T once per chunk for all heads, so it only checks that the group
+    is positive."""
     if initial_state is not None:
         raise ValueError("ssd_scan starts from a zero state: "
                          "initial_state must be None")

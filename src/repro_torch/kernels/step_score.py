@@ -7,8 +7,11 @@ into every decode iteration of the kernel path: the [B, D] decode-batch
 hiddens feed both matmuls without the [B, 512] activations going through
 device memory.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. Each kernel launch adds one to
+The kernel runs in two launches: partial pre-activations over D-slices of
+W1 spread across the card, then a fixed-order sum of the slices with the
+ReLU, the W2 dot and the sigmoid (deterministic: no float atomics). On a
+CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises. Each call that launches adds one to
 ``LAUNCHES["step_score"]``.
 """
 from __future__ import annotations
@@ -37,8 +40,10 @@ def _library():
     if _lib is None:
         lib = build.load("step_score")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_step_score.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.repro_step_score.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.repro_step_score.restype = i
+        lib.repro_step_score_slice_rows.restype = i
+        lib.slice_rows = lib.repro_step_score_slice_rows()
         _lib = lib
     return _lib
 
@@ -68,10 +73,17 @@ def step_score(hidden: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              "weights must be w1 [D, Hd], b1 [Hd], w2 [Hd, 1], b2 [1]")
     _require(Hd % 32 == 0 and 32 <= Hd <= 1024,
              f"hidden width {Hd} must be a multiple of 32 in [32, 1024]")
+    _require(B >= 1 and D >= 1, f"hidden shape {tuple(hidden.shape)}")
+    if w1.data_ptr() % 16:  # the kernel reads W1 as float4
+        w1 = w1.clone()
+    lib = _library()
     out = torch.empty((B,), dtype=torch.float32, device=hidden.device)
-    err = _library().repro_step_score(
+    # partial pre-activations, one row of them per slice of W1's rows
+    part = torch.empty((-(-D // lib.slice_rows), B, Hd),
+                       dtype=torch.float32, device=hidden.device)
+    err = lib.repro_step_score(
         hidden.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), B, D, Hd,
+        b2.data_ptr(), out.data_ptr(), part.data_ptr(), B, D, Hd,
         int(hidden.dtype == torch.bfloat16),
         torch.cuda.current_stream(hidden.device).cuda_stream)
     if err != 0:

@@ -99,16 +99,65 @@ def test_prefill_kernel_matches_plain(gen, dtype, C, prefix, nvalid, window):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _scorer_inputs(g, B, D, Hd, dtype):
+    h = torch.randn(B, D, generator=g, device="cuda").to(dtype)
+    w1 = torch.randn(D, Hd, generator=g, device="cuda") * D ** -0.5
+    b1 = torch.randn(Hd, generator=g, device="cuda") * 0.1
+    w2 = torch.randn(Hd, 1, generator=g, device="cuda") * Hd ** -0.5
+    b2 = torch.randn(1, generator=g, device="cuda") * 0.1
+    return h, w1, b1, w2, b2
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,D", [(1, 256), (13, 256), (64, 2560)])
+@pytest.mark.parametrize("B,D", [(1, 256), (13, 256), (64, 2560), (16, 2560),
+                                 (130, 1000)])
 def test_step_score_kernel_matches_plain(gen, dtype, B, D):
-    h = torch.randn(B, D, generator=gen, device="cuda").to(dtype)
-    w1 = torch.randn(D, 512, generator=gen, device="cuda") * D ** -0.5
-    b1 = torch.randn(512, generator=gen, device="cuda") * 0.1
-    w2 = torch.randn(512, 1, generator=gen, device="cuda") * 512 ** -0.5
-    b2 = torch.randn(1, generator=gen, device="cuda") * 0.1
-    got = ss.step_score(h, w1, b1, w2, b2)
-    torch.testing.assert_close(got, ss.step_score_plain(h, w1, b1, w2, b2),
+    """(16, 2560) is the serve batch; (130, 1000) has a D that no slice
+    of 64 rows divides and lanes across a tile edge."""
+    args = _scorer_inputs(gen, B, D, 512, dtype)
+    got = ss.step_score(*args)
+    torch.testing.assert_close(got, ss.step_score_plain(*args),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hd", [32, 1024])
+def test_step_score_kernel_hidden_widths(gen, dtype, Hd):
+    """The narrowest and widest hidden layer the kernel takes: one
+    partial hidden tile, and eight."""
+    args = _scorer_inputs(gen, 13, 1000, Hd, dtype)
+    torch.testing.assert_close(ss.step_score(*args),
+                               ss.step_score_plain(*args), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_step_score_kernel_deterministic(gen):
+    """No float atomics: the same inputs give bitwise the same scores."""
+    args = _scorer_inputs(gen, 64, 2560, 512, torch.bfloat16)
+    first = ss.step_score(*args)
+    assert torch.equal(first, ss.step_score(*args))
+
+
+def test_step_score_kernel_in_cuda_graph(gen):
+    """Both launches capture: a replay matches the eager call bitwise, and
+    a replay after new hiddens are copied in scores the new hiddens."""
+    h, w1, b1, w2, b2 = _scorer_inputs(gen, 16, 2560, 512, torch.bfloat16)
+    eager = ss.step_score(h, w1, b1, w2, b2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.step_score(h, w1, b1, w2, b2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.step_score(h, w1, b1, w2, b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    h.copy_(torch.randn(h.shape, generator=gen, device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ss.step_score_plain(h, w1, b1, w2, b2),
                                rtol=1e-5, atol=1e-5)
 
 
@@ -402,11 +451,13 @@ SSD_TOL = dict(rtol=2e-3, atol=2e-3)
     (1, 64, 2, 8, 16, 16, False), (2, 128, 6, 16, 32, 32, False),
     (1, 256, 4, 32, 64, 128, False), (2, 96, 5, 16, 32, 32, False),
     (2, 33, 8, 32, 16, 64, False), (1, 512, 80, 64, 128, 256, True),
-    (2, 64, 8, 32, 16, 32, True)])
+    (2, 64, 8, 32, 16, 32, True), (1, 4096, 80, 64, 128, 256, True),
+    (2, 512, 80, 64, 128, 256, False)])
 def test_ssd_kernel_matches_plain(gen, B, S, H, P, N, chunk, stress):
     """The JAX test shapes (one with a head group that does not divide
-    H), a chunk of 33 (S under the chunk), and the full-width heads with
-    the init's steep decays."""
+    H), a chunk of 33 (S under the chunk), the full-width heads with the
+    init's steep decays, 16 chunks of state passing, and two batch rows
+    at full heads."""
     args = _ssd_inputs(gen, B, S, H, P, N, stress)
     ops.reset_launch_counts()
     y, h = sd.ssd_scan(*args, chunk=chunk, head_group=4)
@@ -431,6 +482,14 @@ def test_ssd_kernel_padded_sequence(gen):
     torch.testing.assert_close(y[:, :1000], yp, **SSD_TOL)
     torch.testing.assert_close(h, hp, **SSD_TOL)
     assert not y[:, 1000:].any()
+
+
+def test_ssd_kernel_deterministic(gen):
+    """Every pass sums in a fixed order: two calls agree bitwise."""
+    args = _ssd_inputs(gen, 1, 1024, 80, 64, 128, stress=True)
+    y, h = sd.ssd_scan(*args, chunk=256)
+    y2, h2 = sd.ssd_scan(*args, chunk=256)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_ssd_kernel_refusals_and_no_backward(gen):
