@@ -16,18 +16,31 @@ Phases, each printing one JSON line:
                 paged kernel over bf16/f32 pools (K1a, K1b) and over
                 int8/fp8 pools (K1c), the scorer (K2), flash attention (K3),
                 the SSD scan (K4: y and the final state, also over a
-                padded sequence and with the init's steep decays);
+                padded sequence and with the init's steep decays), and
+                Mamba2's decode state update (``ssm_decode``: 128 chained
+                steps, every lane's state moving);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
                 seeded weights) under memory pressure through
                 ``Engine.serve``, kernels on: launch counts, pruning, a
                 drained pool; then the kernel engine against the dense
-                engine at the smoke config (f32, greedy tokens identical);
+                engine at the smoke config (f32, greedy tokens identical).
+                Every serve phase runs the engine as users do (each decode
+                tick one CUDA-graph replay) three times, and once through
+                the eager horizon (``_eager_decode``): its ``graph`` field
+                holds both runs (wall, decode seconds, iterations, replays
+                against ticks, captures and their seconds, peak memory,
+                the device ms of one iteration) and the check that both
+                give the same tokens, statuses and prunes;
   5. batched  — four requests through ``Engine.serve_batch`` with chunked
                 prefill and the prefix cache: the prefill kernel face and
-                a prefix-cache hit;
+                a prefix-cache hit (a fresh engine for each graphed call);
   6. serve_int8, serve_fp8 — the serve phase over a quantized pool, with
                 chunked prefill: both faces of K1c; then the int8 kernel
                 engine against the int8 dense engine at the smoke config;
+     serve_sampled — temperature 0.8 through the scalar sampler, then
+                mixed per-request params through the lane-wise sampler,
+                graphed against eager from one generator seed: the same
+                tokens;
   7. forward_kernel — ``forward_full(use_kernel=True)`` at full width
                 against the dense forward: one K3 launch per layer;
   8. train    — AdamW steps of ``make_train_step`` at full width, then
@@ -38,15 +51,18 @@ Phases, each printing one JSON line:
                 rows (``paged_attention_decode_long``, 16 lanes of
                 1024-4096 slots) and K2 at the kernels phase's 64 lanes
                 (``step_score_b64``), on this line only, and the device
-                time of each launch inside K2 and K4 (torch.profiler);
+                time of each launch inside K2, K4 and ``ssm_decode``
+                (torch.profiler);
  10. step     — one full-width decode iteration: eager wall time against
-                the device time of its CUDA-graph replay;
+                the device time of its CUDA-graph replay, and its kernels
+                by device time (torch.profiler);
  11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
                 full width (64 layers, random seeded weights, per-slot
                 recurrent state, no KV pool) through ``Engine.serve``,
-                kernels on: the fused scorer, pruning with no wait, a
-                drained pool; then the kernel engine against the dense
-                engine at the mamba2 smoke config;
+                kernels on: the fused scorer and ``ssm_decode``, pruning
+                with no wait, a drained pool, graphed against eager; then
+                the kernel engine against the dense engine at the mamba2
+                smoke config;
  12. forward_ssd — ``forward_full(use_kernel=True)`` of mamba2 at full
                 width against the dense forward: one K4 launch per layer;
  13. step_mamba2 — phase 10 for mamba2's decode iteration.
@@ -58,6 +74,7 @@ exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -211,7 +228,8 @@ def phase_build(ops):
     tc = tensor_core_instructions(ops.build, ops.SOURCES)
     emit("build", seconds=round(seconds, 3), ptxas=summary,
          registers_spills={src: registers_spills(summary.get(src, []))
-                           for src in ("step_score", "ssd_scan")},
+                           for src in ("step_score", "ssd_scan",
+                                       "ssm_decode")},
          tensor_core_instructions=tc)
     if tc != "not available":
         check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
@@ -235,7 +253,65 @@ def ssd_inputs(g, S, stress, B=1, H=80, P=64, N=128):
     return x, dt, A, Bm, Cm
 
 
-def phase_kernels(pa, ss, fa, sd, kvq):
+def ssm_decode_inputs(g, dtype, B=16, H=80, P=64, N=128, W=4):
+    """``ssm_decode``'s operands at mamba2's full width: params as the init
+    makes them (f32 dt_bias, A_log and D), a bf16 conv state and an f32
+    ssm state."""
+    C = H * P + 2 * N
+    params = (torch.randn(W, C, generator=g, device="cuda").mul(0.5)
+              .to(dtype),
+              torch.randn(C, generator=g, device="cuda").mul(0.1).to(dtype),
+              torch.log(torch.expm1(torch.rand(H, generator=g, device="cuda")
+                                    * 0.09 + 0.01)),
+              torch.log(torch.arange(1, H + 1, device="cuda",
+                                     dtype=torch.float32)),
+              torch.randn(H, generator=g, device="cuda"))
+    ssm = torch.randn(B, H, P, N, generator=g, device="cuda")
+    conv = torch.randn(B, W - 1, C, generator=g, device="cuda").to(
+        torch.bfloat16)
+    return params, ssm, conv
+
+
+def ssm_projection(g, dtype, B=16, H=80, P=64, N=128):
+    """xbc [B, C] and dt [B, H] as strided slices of one projection row, as
+    the mixer hands them over (z in front)."""
+    C = H * P + 2 * N
+    proj = torch.randn(B, H * P + C + H, generator=g, device="cuda").to(dtype)
+    return proj[:, H * P:H * P + C], proj[:, H * P + C:]
+
+
+def check_ssm_decode(smd, g, errs, steps=128):
+    """``ssm_decode`` against its plain version over ``steps`` chained
+    decode steps at full width, each side feeding its own states on: the
+    conv state exactly, y and the ssm state within the f32 (1e-4) or bf16
+    (1e-2) tolerance. Lanes 0-3 are re-fed one fixed projection, as a
+    stopped lane re-feeds its last token: their state must move at every
+    step, as every lane's does (nothing is masked)."""
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        params, ssm, conv = ssm_decode_inputs(g, dtype)
+        ssm_p, conv_p = ssm.clone(), conv.clone()
+        frozen = ssm_projection(g, dtype)
+        err = 0.0
+        for _ in range(steps):
+            xbc, dt = ssm_projection(g, dtype)
+            xbc[:4], dt[:4] = frozen[0][:4], frozen[1][:4]
+            before = ssm.clone()
+            y = smd.ssm_decode(conv, ssm, xbc, dt, *params)
+            y_p, ssm_p, conv_p = smd.ssm_decode_plain(conv_p, ssm_p, xbc, dt,
+                                                      *params)
+            conv_p = conv_p.to(torch.bfloat16)
+            torch.cuda.synchronize()
+            check(torch.equal(conv, conv_p), "ssm_decode: conv state differs")
+            check(bool((ssm != before).flatten(1).any(1).all()),
+                  "ssm_decode: a lane's state did not move")
+            err = max(err, compare(f"ssm_decode {dtype} state", ssm, ssm_p,
+                                   tol),
+                      compare(f"ssm_decode {dtype} y", y, y_p, tol))
+        errs[f"ssm_decode_{str(dtype)[6:]}"] = err
+        del params, ssm, conv, ssm_p, conv_p
+
+
+def phase_kernels(pa, ss, fa, sd, kvq, smd):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     H, KVH, hd, bp = 32, 8, 128, 32
     scale = 1.0 / math.sqrt(hd)
@@ -345,6 +421,7 @@ def phase_kernels(pa, ss, fa, sd, kvq):
             compare(f"K4 S={S} stress={stress} y", y[:, :S], yp, SSD_TOL),
             compare(f"K4 S={S} stress={stress} state", h, hp, SSD_TOL))
         del x, dt, Bm, Cm, padded, y, yp
+    check_ssm_decode(smd, g, errs)
     emit("kernels", max_abs_err=errs,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
@@ -382,6 +459,147 @@ def check_result(res, engine):
     check(engine.fault_stats.degraded_to_dense == 0, "engine degraded")
 
 
+def tick_counting(E):
+    """An ``Engine`` that counts its decode ticks: one ``decode_fn``
+    lookup each (these phases inject no fault, so nothing retries)."""
+    class Engine(E.Engine):
+        ticks = 0
+
+        def decode_fn(self, horizon, lanewise=False):
+            self.ticks += 1
+            return super().decode_fn(horizon, lanewise)
+    return Engine
+
+
+def timed_run(ops, engine, run):
+    """``run(engine)`` -> its results, with the counts zeroed just before
+    and read just after, wall time, ticks and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ticks = engine.ticks
+    t0 = time.perf_counter()
+    results = run(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(r.total_tokens for r in results)
+    return {"results": results, "wall_s": wall, "ticks": engine.ticks - ticks,
+            "launches": ops.launch_counts(),
+            "decode_s": sum(r.decode_s for r in results),
+            "total_tokens": tokens, "tokens_per_s": tokens / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def graph_device_ms(engine, reps=10):
+    """Device ms of one decode iteration: the engine's full-horizon graph
+    replayed with every lane's limit at 0 (its KV writes land in the
+    scratch block), CUDA events around ``reps`` replays, over the
+    horizon. Diagnostic replays: they count no launch."""
+    K = engine.ecfg.decode_horizon
+    runner = next(f for (k, _), f in engine._decode_fns.items() if k == K)
+    runner.inputs[2].zero_()
+    runner.graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        runner.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps / K
+
+
+def same_serves(name, want, got, score_tol):
+    """Identical tokens, statuses, prunes and pruned traces; step scores
+    within ``score_tol``. Returns the comparison's fields."""
+    err = 0.0
+    for w, r in zip(want, got):
+        check([t.output_tokens for t in w.traces]
+              == [t.output_tokens for t in r.traces],
+              f"{name}: graphed tokens differ from eager")
+        check([t.status for t in w.traces] == [t.status for t in r.traces],
+              f"{name}: graphed statuses differ from eager")
+        check(w.num_pruned == r.num_pruned and w.status == r.status,
+              f"{name}: graphed prunes differ from eager")
+        for tw, tr in zip(w.traces, r.traces):
+            check(len(tw.step_scores) == len(tr.step_scores),
+                  f"{name}: step score counts differ")
+            err = max([err] + [abs(a - b) for a, b in
+                               zip(tw.step_scores, tr.step_scores)])
+    check(err <= score_tol, f"{name}: graphed vs eager step scores differ "
+          f"by {err} > {score_tol}")
+    return {"tokens_identical": True, "scores_bitwise": err == 0.0,
+            "max_step_score_err": err}
+
+
+def graphed_vs_eager(ops, make_engine, run, name, calls=3, fresh=False,
+                     score_tol=SCORE_TOL["atol"]):
+    """``run`` once on an engine with the eager horizon and ``calls`` times
+    on graphed engines (one engine for all calls, or a ``fresh`` one each
+    call). Checks that each graphed tick was one replay, that the first
+    graphed call launched each kernel as often as the eager run, and that
+    both gave the same serves. Returns (the first graphed run, the
+    report for the phase's line). An engine refers to itself through its
+    steps' closures, so each one is collected before the next run: its
+    pool would otherwise count in the next run's peak."""
+    def collect():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    eager = timed_run(ops, make_engine(True), run)
+    collect()
+    graphed, capture_s, eng = [], 0.0, None
+    for i in range(calls):
+        if eng is None or fresh:
+            if eng is not None:
+                capture_s += sum(f.capture_s for f in eng._decode_fns.values())
+                eng = None
+                collect()
+            eng = make_engine(False)
+        graphed.append(timed_run(ops, eng, run))
+    capture_s += sum(f.capture_s for f in eng._decode_fns.values())
+    device_ms = graph_device_ms(eng)
+    eng = None
+    collect()
+    first = graphed[0]
+    kernels = [k for k in eager["launches"] if not k.startswith("decode_")]
+    for g in graphed:
+        check(g["launches"]["decode_graph_replays"] == g["ticks"] > 0,
+              f"{name}: {g['ticks']} ticks but "
+              f"{g['launches']['decode_graph_replays']} graph replays")
+    check(eager["launches"]["decode_graph_replays"] == 0
+          and eager["launches"]["decode_graph_captures"] == 0,
+          f"{name}: the eager engine replayed a graph")
+    check({k: first["launches"][k] for k in kernels}
+          == {k: eager["launches"][k] for k in kernels},
+          f"{name}: graphed kernel launches differ from eager")
+    report = same_serves(name, eager["results"], first["results"], score_tol)
+    for g in graphed[1:]:
+        check([t.output_tokens for r in g["results"] for t in r.traces]
+              == [t.output_tokens for r in first["results"]
+                  for t in r.traces], f"{name}: graphed calls differ")
+    iters = max(eager["launches"]["step_score"], 1)
+    best = min(g["wall_s"] for g in graphed)
+    report.update({
+        "eager": {k: eager[k] for k in ("wall_s", "decode_s", "ticks",
+                                        "tokens_per_s",
+                                        "max_memory_allocated")},
+        "graphed": {k: [g[k] for g in graphed]
+                    for k in ("wall_s", "decode_s", "ticks", "tokens_per_s",
+                              "max_memory_allocated")},
+        "decode_iterations": iters,
+        "replays": [g["launches"]["decode_graph_replays"] for g in graphed],
+        "captures": [g["launches"]["decode_graph_captures"]
+                     for g in graphed],
+        "capture_s": capture_s,
+        "eager_wall_ms_per_iteration": eager["wall_s"] / iters * 1e3,
+        "graphed_wall_ms_per_iteration": [g["wall_s"] / iters * 1e3
+                                          for g in graphed],
+        "host_ms_per_iteration": (eager["wall_s"] - best) / iters * 1e3,
+        "device_ms_per_iteration": device_ms})
+    return first, report
+
+
 def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
     """The STEP serve at full width over a ``kv_dtype`` pool: phase
     ``serve`` (bf16, one-shot prefill) or ``serve_<kv_dtype>`` (int8/fp8,
@@ -398,19 +616,22 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
                           use_kernel="auto", decode_horizon=4,
                           prefill_chunk_size=chunk,
                           prefix_cache=True, faults=None, kv_dtype=kv_dtype)
-    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
-                      scorer_params=scorer)
-    check(engine.use_kernel and engine.fused_scorer,
-          "engine not on the kernel path")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = engine.serve(prompt, 16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    check_result(res, engine)
+
+    def make_engine(eager):
+        engine = tick_counting(E)(params, cfg, ecfg,
+                                  rt["pruning"].make_policy("step"),
+                                  scorer_params=scorer, _eager_decode=eager)
+        check(engine.use_kernel and engine.fused_scorer,
+              "engine not on the kernel path")
+        return engine
+
+    def run(engine):
+        res = engine.serve(prompt, 16)
+        check_result(res, engine)
+        return [res]
+
+    first, report = graphed_vs_eager(ops, make_engine, run, name)
+    res, launches = first["results"][0], first["launches"]
     check(launches[decode] > 0, f"{decode} never launched")
     if quant:
         check(launches["paged_attention_prefill_quant"] > 0,
@@ -426,16 +647,69 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
     out = {"kv_dtype": kv_dtype, "prefill_chunk_size": chunk,
            "prompt_tokens": len(prompt), "traces": 16,
            "num_pruned": res.num_pruned, "total_tokens": res.total_tokens,
-           "wall_s": wall, "decode_s": res.decode_s,
+           "wall_s": first["wall_s"], "decode_s": res.decode_s,
            "prefill_s": res.prefill_s,
-           "tokens_per_s": res.total_tokens / wall,
+           "tokens_per_s": res.total_tokens / first["wall_s"],
            "decode_iterations": iters,
            "launches": launches,
            "decode_launches_per_iteration": launches[decode] / max(iters, 1),
-           "kv_block_bytes": engine.kv_block_bytes,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "pool_drained": True}
+           "kv_block_bytes": E.kv_quant.pool_block_bytes(cfg, kv_dtype),
+           "max_memory_allocated": first["max_memory_allocated"],
+           "pool_drained": True, "graph": report}
     emit(name, **out)
+    return out
+
+
+def phase_serve_sampled(rt, ops, cfg, params, scorer):
+    """Sampled STEP serves at full width, graphed against eager from one
+    generator seed: 8 traces at temperature 0.8 (top-k 20, top-p 0.95)
+    through the scalar sampler; then the same request beside one at
+    temperature 0.6 (top-k 0, top-p 0.9), which takes the lane-wise
+    sampler. The capture registers the engine's generator, so each replay
+    draws what the eager horizon draws: the tokens must match."""
+    E = rt["engine"]
+    Sp = rt["sampling"].SamplingParams
+    hot = Sp(temperature=0.8, top_k=20, top_p=0.95, max_new_tokens=64)
+    warm = Sp(temperature=0.6, top_k=0, top_p=0.9, max_new_tokens=64)
+    tok = rt["tokenizer"].get_tokenizer()
+    probs = rt["evaluate"].make_problems(2, seed=SEED + 7)
+    prompts = [tok.encode(rt["arithmetic"].make_prompt(p), add_bos=True)
+               for p in probs]
+    out = {}
+    for sampler, reqs in (("scalar", [(0, None)]),
+                          ("lanewise", [(0, None), (1, warm)])):
+        ecfg = E.EngineConfig(max_batch=16, num_blocks=80, capacity=512,
+                              max_new_tokens=64, sampling=hot,
+                              use_kernel="auto", decode_horizon=4,
+                              prefix_cache=True, faults=None,
+                              kv_dtype="bf16", seed=SEED + 7)
+
+        def make_engine(eager, ecfg=ecfg):
+            return tick_counting(E)(params, cfg, ecfg,
+                                    rt["pruning"].make_policy("step"),
+                                    scorer_params=scorer,
+                                    _eager_decode=eager)
+
+        def run(engine, reqs=reqs, sampler=sampler):
+            results = engine.serve_batch([
+                E.Request(request_id=i, prompt_tokens=prompts[p],
+                          n_traces=8, sampling=sp,
+                          policy=rt["pruning"].make_policy("step"))
+                for i, (p, sp) in enumerate(reqs)])
+            for res in results:
+                check_result(res, engine)
+            check({lw for _, lw in engine._decode_fns}
+                  == {sampler == "lanewise"}, f"{sampler}: other sampler")
+            return results
+
+        first, report = graphed_vs_eager(ops, make_engine, run,
+                                         f"serve_sampled {sampler}",
+                                         calls=1, fresh=True)
+        out[sampler] = {"total_tokens": first["total_tokens"],
+                        "num_pruned": [r.num_pruned
+                                       for r in first["results"]],
+                        "launches": first["launches"], "graph": report}
+    emit("serve_sampled", **out)
     return out
 
 
@@ -500,22 +774,28 @@ def phase_serve_mamba2(rt, ops, cfg, params, scorer):
                           max_new_tokens=128, sampling=greedy(rt, 128),
                           use_kernel="auto", decode_horizon=4,
                           prefix_cache=True, faults=None, kv_dtype="bf16")
-    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
-                      scorer_params=scorer)
-    check(engine.use_kernel and engine.fused_scorer,
-          "engine not on the kernel path")
-    check(engine.kv_block_bytes == 0 and engine.prefix_cache is None,
-          "an ssm stack has no KV pool to share")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = engine.serve(prompt, 16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    check_result(res, engine)
+
+    def make_engine(eager):
+        engine = tick_counting(E)(params, cfg, ecfg,
+                                  rt["pruning"].make_policy("step"),
+                                  scorer_params=scorer, _eager_decode=eager)
+        check(engine.use_kernel and engine.fused_scorer,
+              "engine not on the kernel path")
+        check(engine.kv_block_bytes == 0 and engine.prefix_cache is None,
+              "an ssm stack has no KV pool to share")
+        return engine
+
+    def run(engine):
+        res = engine.serve(prompt, 16)
+        check_result(res, engine)
+        return [res]
+
+    first, report = graphed_vs_eager(ops, make_engine, run, "serve_mamba2")
+    res, launches, wall = (first["results"][0], first["launches"],
+                           first["wall_s"])
     check(launches["step_score"] > 0, "K2 never launched")
+    check(launches["ssm_decode"] == launches["step_score"] * cfg.num_layers,
+          "ssm_decode did not run once per layer and iteration")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
           "STEP made a trace wait")
@@ -530,8 +810,8 @@ def phase_serve_mamba2(rt, ops, cfg, params, scorer):
            "tokens_per_s": res.total_tokens / wall,
            "decode_iterations": launches["step_score"],
            "launches": launches, "recurrent_state_bytes": state,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "pool_drained": True}
+           "max_memory_allocated": first["max_memory_allocated"],
+           "pool_drained": True, "graph": report}
     emit("serve_mamba2", **out)
     return out
 
@@ -625,26 +905,31 @@ def phase_batched(rt, ops, cfg, params, scorer):
                           use_kernel="auto", decode_horizon=4,
                           prefill_chunk_size=16, prefix_cache=True,
                           faults=None, kv_dtype="bf16")
-    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
-                      scorer_params=scorer)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    # two waves of two concurrent requests on one engine: the second
-    # wave's copy of the shared prompt finds the first wave's blocks
-    # parked in the prefix cache
-    results = []
-    for wave in ((0, 1), (2, 3)):
-        reqs = [E.Request(request_id=i, prompt_tokens=prompts[i], n_traces=8,
-                          policy=rt["pruning"].make_policy("step"))
-                for i in wave]
-        results += engine.serve_batch(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    for res in results:
-        check_result(res, engine)
+
+    def make_engine(eager):
+        return tick_counting(E)(params, cfg, ecfg,
+                                rt["pruning"].make_policy("step"),
+                                scorer_params=scorer, _eager_decode=eager)
+
+    def run(engine):
+        # two waves of two concurrent requests on one engine: the second
+        # wave's copy of the shared prompt finds the first wave's blocks
+        # parked in the prefix cache
+        results = []
+        for wave in ((0, 1), (2, 3)):
+            reqs = [E.Request(request_id=i, prompt_tokens=prompts[i],
+                              n_traces=8,
+                              policy=rt["pruning"].make_policy("step"))
+                    for i in wave]
+            results += engine.serve_batch(reqs)
+        for res in results:
+            check_result(res, engine)
+        return results
+
+    first, report = graphed_vs_eager(ops, make_engine, run, "batched",
+                                     fresh=True)
+    results, launches, wall = (first["results"], first["launches"],
+                               first["wall_s"])
     cached = [res.metrics.cached_tokens for res in results]
     check(launches["paged_attention_prefill"] > 0, "K1b never launched")
     check(cached[3] > 0, "no prefix-cache hit on the shared prompt")
@@ -653,7 +938,8 @@ def phase_batched(rt, ops, cfg, params, scorer):
                                                          prompts],
            "cached_tokens": cached, "total_tokens": total, "wall_s": wall,
            "tokens_per_s": total / wall, "launches": launches,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": first["max_memory_allocated"],
+           "graph": report}
     emit("batched", **out)
     return out
 
@@ -833,6 +1119,41 @@ def device_split(fn):
         return f"not measured: {err}"
 
 
+def kernel_breakdown(fn, top=8):
+    """Where one eager call of ``fn`` spends device time, from
+    ``torch.profiler``: the kernels it launches, their summed device ms,
+    that sum split into the port's own kernels, matrix products and
+    PyTorch's other kernels, and the ``top`` kernels by device time.
+    Diagnostic only: no check reads it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:
+        return f"not measured: {err}"
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if (getattr(e, "device_time_total", 0) or 0) > 0]
+    if not rows:
+        return "not measured: no device time recorded"
+    groups = {"port_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    for key, ms, _ in rows:
+        if "anonymous namespace" in key:
+            groups["port_kernels"] += ms
+        elif re.search(r"gemm|gemv|xmma|cutlass|cublas|nvjet", key,
+                       flags=re.I):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    rows.sort(key=lambda r: -r[1])
+    return {"kernels": sum(c for _, _, c in rows),
+            "device_ms": sum(ms for _, ms, _ in rows), "by_group_ms": groups,
+            "top": [[k[:80], ms, c] for k, ms, c in rows[:top]]}
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -840,7 +1161,7 @@ def bound_ms(nbytes, flops, dtype):
         "operations"
 
 
-def phase_times(pa, ss, fa, sd, kvq):
+def phase_times(pa, ss, fa, sd, kvq, smd):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     H, KVH, hd, bp, page = 32, 8, 128, 32, 16
@@ -1048,6 +1369,31 @@ def phase_times(pa, ss, fa, sd, kvq):
         shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={Ns} chunk={ls} f32",
         bytes=nbytes, flops=flops, dtype=torch.float32)
 
+    # ssm_decode at serve_mamba2's decode batch: 16 lanes, H = 80, P = 64,
+    # N = 128, C = 5376, bf16 projection and conv state, f32 ssm state.
+    # Bytes: the ssm state and the conv state read and written once, the
+    # projection slices, the params and y; operations: per state element
+    # the decay, the input term, their sum and the y product (5 flop).
+    params, ssm, conv = ssm_decode_inputs(g, bf)
+    xbc, dt = ssm_projection(g, bf)
+    Bd, Hd_, Pd, Nd = ssm.shape
+    Wd, Cd = params[0].shape
+    nbytes = (2 * ssm.numel() * 4 + 2 * conv.numel() * 2 + xbc.numel() * 2
+              + dt.numel() * 2 + (Wd + 1) * Cd * 2 + 3 * Hd_ * 4
+              + Bd * Hd_ * Pd * 4)
+    rows["ssm_decode"] = dict(
+        ms=time_cuda(lambda: smd.ssm_decode(conv, ssm, xbc, dt, *params)),
+        plain_ms=time_cuda(lambda: smd.ssm_decode_plain(conv, ssm, xbc, dt,
+                                                        *params)),
+        library_ms=None, library="none (no single call)",
+        launches_ms=device_split(lambda: smd.ssm_decode(conv, ssm, xbc, dt,
+                                                        *params)),
+        shape=f"B={Bd} H={Hd_} P={Pd} N={Nd} C={Cd} W={Wd} bf16 "
+              f"projection and conv state, f32 ssm state",
+        bytes=nbytes, flops=5 * ssm.numel() + 2 * Wd * Bd * Cd,
+        dtype=torch.float32)
+    del params, ssm, conv, xbc, dt
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 r.pop("dtype"))
@@ -1092,7 +1438,8 @@ def phase_step(rt, cfg, params, name="step"):
     out = {"shape": f"B={B} lanes, positions 79, pool {nb} blocks",
            "eager_wall_ms": eager_ms, "graph_device_ms": device_ms,
            "host_share": 1.0 - device_ms / eager_ms,
-           "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+           "weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "breakdown": kernel_breakdown(step)}
     if "ssm_state" in cache:
         state_bytes = sum(cache[k].numel() * cache[k].element_size()
                           for k in ("ssm_state", "conv_state"))
@@ -1121,6 +1468,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as sd
+    from repro_torch.kernels import ssm_decode as smd
     from repro_torch.kernels import step_score as ss
     kvq = rt["kv_quant"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1128,7 +1476,7 @@ def main() -> int:
 
     info = phase_device()
     phase_build(ops)
-    errs = phase_kernels(pa, ss, fa, sd, kvq)
+    errs = phase_kernels(pa, ss, fa, sd, kvq, smd)
     cfg, params, scorer, n_params, init_s = full_model(rt)
     emit("model", name=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=n_params, init_s=init_s)
@@ -1141,9 +1489,10 @@ def main() -> int:
                                    chunk=8)
              for kv_dtype in QUANT}
     phase_smoke_reference(rt, "int8", chunk=4)
+    phase_serve_sampled(rt, ops, cfg, params, scorer)
     forward = phase_forward_kernel(rt, ops, cfg, params)
     phase_train(rt, ops, cfg, params)
-    times = phase_times(pa, ss, fa, sd, kvq)
+    times = phase_times(pa, ss, fa, sd, kvq, smd)
     phase_step(rt, cfg, params)
 
     # mamba2 at full width, after qwen3's params are freed (the train phase
@@ -1183,6 +1532,12 @@ def main() -> int:
         "ssd_scan": (src + "ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:40", "ssd_scan",
                      forward_ssd["launches"]["ssd_scan"]),
+        # no Pallas counterpart: the reference leaves this step to XLA's
+        # fusion inside its jitted decode horizon
+        "ssm_decode": (src + "ssm_decode.cu",
+                       "none (XLA fusion of src/repro/models/layers.py:1120)",
+                       "ssm_decode_bfloat16",
+                       serve_ssm["launches"]["ssm_decode"]),
     }
     for kv_dtype, run in quant.items():
         for face in ("decode", "prefill"):

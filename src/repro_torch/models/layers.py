@@ -24,6 +24,9 @@ from repro_torch.models import kv_quant as KQ
 from repro_torch.kernels.paged_attention import (
     check_index, masked_softmax_pv, paged_attention_plain,
     paged_attention_prefill_plain)
+# the one-token Mamba2 steps live beside their fused kernel
+from repro_torch.kernels.ssm_decode import (  # noqa: F401
+    causal_conv1d_step, ssd_decode_step, ssm_decay, ssm_decode_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -441,17 +444,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
-def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
-                    A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor):
-    """One-token SSD recurrence. state [B, H, P, N]; x [B, H, P];
-    dt [B, H]; A [H]; Bm/Cm [B, N]. Returns (y [B, H, P], new_state)."""
-    dA = torch.exp(dt * A[None, :])                       # [B, H]
-    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, Bm, x)
-    new_state = state * dA[..., None, None] + dBx
-    y = torch.einsum("bhpn,bn->bhp", new_state, Cm)
-    return y, new_state
-
-
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x [B, S, C]; w [W, C]; b [C]."""
@@ -461,15 +453,6 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return out + b[None, None, :]
 
 
-def causal_conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor,
-                       w: torch.Tensor, b: torch.Tensor):
-    """conv_state [B, W-1, C]; x_t [B, C]. Returns (y [B, C], new_state
-    [B, W-1, C]) in the promoted dtype of the state and the input."""
-    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # [B, W, C]
-    y = torch.einsum("bwc,wc->bc", full, w.to(full.dtype)) + b[None, :]
-    return y, full[:, 1:, :]
-
-
 def _ssm_inputs(cfg: ModelConfig, zxbcdt: torch.Tensor):
     """Split the input projection: (z, xbc, dt) along the last axis."""
     di, N = cfg.d_inner, cfg.ssm_state_size
@@ -477,17 +460,10 @@ def _ssm_inputs(cfg: ModelConfig, zxbcdt: torch.Tensor):
             zxbcdt[..., di + di + 2 * N:])
 
 
-def _ssm_decay(p: dict, dt: torch.Tensor):
-    """(softplus'd f32 step sizes, A = -exp(A_log) f32)."""
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    return dt, -torch.exp(p["A_log"].float())
-
-
-def _ssm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, xs: torch.Tensor,
-             z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Skip term, gate, norm and output projection of the mixer. y/xs
-    [..., H, P]; z [..., di]."""
-    y = y + xs.float() * p["D"].float()[:, None]
+def _ssm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Gate, norm and output projection of the mixer. y [..., H, P] with
+    the skip term added; z [..., di]."""
     y = y.reshape(*z.shape).to(dtype)
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm_w"], cfg.norm_eps)
     return y @ p["w_out"]
@@ -511,7 +487,7 @@ def mamba2_mixer_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  .float()).to(x.dtype)
     xs = xbc[..., :di].reshape(B, S, H, P)
     Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
-    dt, A = _ssm_decay(p, dt)
+    dt, A = ssm_decay(dt, p["dt_bias"], p["A_log"])
 
     chunk = min(cfg.ssm_chunk_size, S)
     pad = (-S) % chunk
@@ -523,7 +499,8 @@ def mamba2_mixer_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
         Cm_f = F.pad(Cm_f, (0, 0, 0, pad))
     y, final_state = ssd_chunked(xs_f, dt_p, A, Bm_f, Cm_f, chunk=chunk,
                                  use_kernel=use_kernel)
-    out = _ssm_out(p, cfg, y[:, :S], xs, z, x.dtype)
+    out = _ssm_out(p, cfg, y[:, :S] + xs.float() * p["D"].float()[:, None],
+                   z, x.dtype)
     if return_state:
         W = cfg.ssm_conv_width
         conv_state = (xbc_raw[:, S - (W - 1):, :] if S >= W - 1
@@ -533,20 +510,23 @@ def mamba2_mixer_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mamba2_mixer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                        ssm_state: torch.Tensor, conv_state: torch.Tensor):
+                        ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                        use_kernel: bool = False):
     """One-token Mamba2 step. x [B, 1, D]. Returns (out [B, 1, D],
-    new_ssm [B, H, P, N] f32, new_conv [B, W-1, di+2N])."""
-    B = x.shape[0]
-    di, N, H = cfg.d_inner, cfg.ssm_state_size, cfg.ssm_heads
-    P = cfg.ssm_head_dim
+    new_ssm [B, H, P, N] f32, new_conv [B, W-1, di+2N]).
+
+    ``use_kernel`` runs the state update through the ssm_decode wrapper
+    (the CUDA kernel on a CUDA tensor, its plain version on the CPU),
+    which writes the new states into ``ssm_state`` / ``conv_state`` in
+    place and returns them."""
     z, xbc, dt = _ssm_inputs(cfg, x[:, 0] @ p["w_in"])
-    xbc, new_conv = causal_conv1d_step(conv_state, xbc, p["conv_w"],
-                                       p["conv_b"])
-    xbc = F.silu(xbc.float()).to(x.dtype)
-    xs = xbc[..., :di].reshape(B, H, P)
-    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
-    dt, A = _ssm_decay(p, dt)
-    y, new_state = ssd_decode_step(ssm_state, xs.float(), dt, A, Bm.float(),
-                                   Cm.float())
-    return _ssm_out(p, cfg, y, xs, z, x.dtype)[:, None, :], new_state, \
+    args = (xbc, dt, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+            p["D"])
+    if use_kernel:
+        y = kops.ssm_decode(conv_state, ssm_state, *args)
+        new_state, new_conv = ssm_state, conv_state
+    else:
+        y, new_state, new_conv = ssm_decode_plain(conv_state, ssm_state,
+                                                  *args)
+    return _ssm_out(p, cfg, y, z, x.dtype)[:, None, :], new_state, \
         new_conv

@@ -163,6 +163,9 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     window_len: cache capacity in tokens (rolling buffer when the
     sequence outgrows it). The pools, or the recurrent state, are written
     in place (the state of every lane, as the JAX package's step does).
+    ``use_kernel`` runs the paged attention, or each Mamba2 layer's state
+    update, through the kernel wrappers. Nothing here syncs the host or
+    sizes a tensor from data, so the step captures in a CUDA graph.
     Returns {logits [B, Vp], hidden [B, D], cache}."""
     check_ported(cfg)
     h = _embed(params, cfg, tokens)  # [B, 1, D]
@@ -171,9 +174,11 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             lp = _layer(params, l)
             out, ns, nc = L.mamba2_mixer_decode(
                 lp["mixer"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
-                cache["ssm_state"][l], cache["conv_state"][l])
-            cache["ssm_state"][l] = ns
-            cache["conv_state"][l] = nc
+                cache["ssm_state"][l], cache["conv_state"][l],
+                use_kernel=use_kernel)
+            if not use_kernel:  # the kernel wrote the layer's state in place
+                cache["ssm_state"][l] = ns
+                cache["conv_state"][l] = nc
             h = h + out
         hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
         return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
@@ -221,6 +226,11 @@ def multi_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     Inactive lanes keep decoding (the batch shape is fixed) but their
     block-table row points at ``scratch_block``, so their KV writes land
     in scratch, their positions freeze and their outputs are masked.
+
+    Nothing here syncs the host or sizes a tensor from data: on a CUDA
+    engine the whole horizon is captured as one CUDA graph
+    (``serving/cuda_graph.py``), the counterpart of the JAX package's
+    jitted scan.
 
     Returns {tokens, confidences, scores, token_valid, score_valid} each
     [B, K], final_tokens [B], positions [B] and cache (the pools, without

@@ -24,7 +24,15 @@ What differs is the device side:
     (``ssm_state`` / ``conv_state``), written at admission, cleared at
     release and updated in place by every decode iteration, as the JAX
     engine does with its per-slot state;
-  * the engine RNG is a ``torch.Generator`` on the engine's device.
+  * the engine RNG is a ``torch.Generator`` on the engine's device;
+  * on a CUDA engine each ``(horizon, lanewise)`` decode horizon is one
+    device call, as the JAX engine's jitted horizon is: a CUDA graph,
+    captured at its first tick and replayed at every later one
+    (``serving/cuda_graph.py``). A CPU engine stages its inputs and
+    outputs the same way and runs the horizon eagerly. The engine keeps
+    one device pool (and recurrent state) for its lifetime, zeroed in
+    place where the JAX engine makes a fresh one, so that the graphs
+    keep reading the storage they were captured over.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from repro_torch.models.model import (POOL_KEYS, copy_kv_block,
                                       prefill_chunk_step,
                                       supports_chunked_prefill,
                                       write_prefill_kv)
+from repro_torch.serving.cuda_graph import DecodeGraph
 from repro_torch.serving.faults import FaultPlan, FaultStats, RecoveryConfig
 from repro_torch.serving.kv_manager import BlockManager
 from repro_torch.serving.metrics import RequestMetrics
@@ -220,14 +229,17 @@ class Engine:
 
     ``params`` / ``scorer_params`` are the port's dicts of tensors (see
     ``models.init`` / ``models.bridge``); they are moved to ``device``.
-    ``mesh`` (multi-GPU serving) is ROADMAP A10 and raises."""
+    ``mesh`` (multi-GPU serving) is ROADMAP A10 and raises.
+    ``_eager_decode`` calls the decode horizon directly instead of through
+    its :class:`DecodeGraph`: for tests that hold the graphs against the
+    eager horizon, not for serving."""
 
     def __init__(self, params: dict, cfg: ModelConfig, ecfg: EngineConfig,
                  policy: PruningPolicy,
                  scorer_params: Optional[dict] = None,
                  mesh=None,
                  scheduler: Optional[SchedulingPolicy] = None,
-                 device=None):
+                 device=None, _eager_decode: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported to repro_torch yet (ROADMAP A10)")
@@ -254,8 +266,11 @@ class Engine:
         if (ecfg.prefix_cache and ecfg.share_prompt_prefix
                 and self._chunk_supported):
             self.prefix_cache = PrefixCache(self.block_mgr)
-        # with the cache on, the device KV pool outlives a serve_batch call
+        # with the cache on, the device KV pool's contents outlive a
+        # serve_batch call
         self._kv_cache = None
+        self._pool: Optional[dict] = None   # the device pool, for life
+        self._eager_decode = _eager_decode
         self.use_kernel = resolve_use_kernel(ecfg.use_kernel, self.device)
         if ecfg.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
@@ -333,6 +348,10 @@ class Engine:
 
         self._make_decode = make_decode
         self._decode_fns: Dict[Tuple[int, bool], Callable] = {}
+        # one memory pool for this build's decode graphs
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda"
+                            and not self._eager_decode else None)
 
         @torch.no_grad()
         def prefill(params, tokens):
@@ -368,11 +387,16 @@ class Engine:
         self._copy_block = copy_block
 
     def decode_fn(self, horizon: int, lanewise: bool = False) -> Callable:
-        """The fused decode step for ``(horizon, lanewise)``."""
+        """The fused decode step for ``(horizon, lanewise)``: its
+        :class:`DecodeGraph` (captured at its first call on a CUDA
+        engine), or the function itself under ``_eager_decode``."""
         key = (horizon, lanewise)
         fn = self._decode_fns.get(key)
         if fn is None:
-            fn = self._decode_fns[key] = self._make_decode(horizon, lanewise)
+            fn = self._make_decode(horizon, lanewise)
+            if not self._eager_decode:
+                fn = DecodeGraph(fn, self.device, self._graph_pool)
+            self._decode_fns[key] = fn
         return fn
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -442,9 +466,10 @@ class Engine:
 
     def degrade_to_dense(self) -> bool:
         """Fault-ladder rung for injected ``DeviceStepFault``s: drop the
-        kernel path and rebuild the steps dense. A real exception from a
-        kernel build or launch is not caught anywhere: it propagates.
-        Returns False when already dense."""
+        kernel path and rebuild the steps dense (the kernel path's decode
+        graphs go with them; dense ones are captured at their first tick).
+        A real exception from a kernel build or launch is not caught
+        anywhere: it propagates. Returns False when already dense."""
         if not self.use_kernel:
             return False
         self.use_kernel = False
@@ -462,13 +487,21 @@ class Engine:
     # cache plumbing
     # ------------------------------------------------------------------
     def _init_cache(self):
-        """Shared pool sized to the engine budget (not per-sequence)."""
-        cache = init_decode_cache(
-            self.cfg, self.ecfg.max_batch, self.ecfg.capacity,
-            num_blocks=self.ecfg.num_blocks, kv_dtype=self.ecfg.kv_dtype,
-            device=self.device)
-        cache.pop("block_tables", None)
-        return cache
+        """Shared pool sized to the engine budget (not per-sequence), as
+        ``init_decode_cache`` makes it: made at the first call, then the
+        same tensors reset in place (zeros, unit scales), so that a
+        captured decode graph keeps reading the storage it was captured
+        over."""
+        if self._pool is None:
+            self._pool = init_decode_cache(
+                self.cfg, self.ecfg.max_batch, self.ecfg.capacity,
+                num_blocks=self.ecfg.num_blocks, kv_dtype=self.ecfg.kv_dtype,
+                device=self.device)
+            self._pool.pop("block_tables", None)
+            return self._pool
+        for key, t in self._pool.items():
+            t.fill_(1.0 if key in ("k_scale", "v_scale") else 0.0)
+        return self._pool
 
     def _split_prefill_kvs(self, kvs) -> Tuple[Optional[tuple],
                                                Optional[tuple]]:

@@ -1762,7 +1762,9 @@ class SchedulerCore:
             # re-resolve the step each attempt: a mid-retry degrade
             # (kernel->dense rebuild, horizon pin) must take effect on
             # the next attempt. A K>1 limits row is valid for a K=1
-            # step — the lane simply emits one token.
+            # step — the lane simply emits one token. On a CUDA engine
+            # the step is one graph replay; it copies these tensors into
+            # its static inputs first.
             K_eff = 1 if eng.force_horizon1 else K_tick
             fn = eng.decode_fn(K_eff if K_eff == K_cfg else 1,
                                lanewise=self.mixed_sampling)
@@ -1788,6 +1790,11 @@ class SchedulerCore:
                            for t in self.running)
             for slot in self.plan.nan_victims(ev.tick, lanes):
                 confs_h[slot] = [float("nan")] * len(confs_h[slot])
+        # These are a decode graph's static outputs, which its next
+        # replay (or another key's graph, sharing its memory pool)
+        # overwrites. Handing them back as the next tick's inputs is safe:
+        # a graph copies its inputs into its own buffers before it
+        # replays, and nothing else reads them.
         self.dev["tokens"], self.dev["positions"] = fin_tok, fin_pos
         self.cur_tokens[:] = ft_h
         self.positions[:] = fp_h

@@ -34,6 +34,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as sd  # noqa: E402
+from repro_torch.kernels import ssm_decode as smd  # noqa: E402
 from repro_torch.kernels import step_score as ss  # noqa: E402
 from repro_torch.models import kv_quant  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
@@ -179,7 +180,9 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
                                    "step_score": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssm_decode": 0,
+                                   "decode_graph_replays": 0,
+                                   "decode_graph_captures": 0}
 
 
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -552,3 +555,174 @@ def test_mamba2_engine_kernel_path_matches_dense_on_card(gen):
         assert tk.status == td.status
         for a, b in zip(tk.step_scores, td.step_scores):
             assert abs(a - b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Mamba2's decode state update (csrc/ssm_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _ssm_decode_inputs(g, B, H, P, N, W, dtype):
+    """Params as the init makes them (f32 dt_bias, A_log and D), states,
+    and a [B, pad + C + H] projection whose xbc and dt slices are handed
+    over as strided views, as the mixer does."""
+    C = H * P + 2 * N
+    dev = "cuda"
+    params = (torch.randn(W, C, generator=g, device=dev).mul(0.5).to(dtype),
+              torch.randn(C, generator=g, device=dev).mul(0.1).to(dtype),
+              torch.log(torch.expm1(torch.rand(H, generator=g, device=dev)
+                                    * 0.09 + 0.01)),
+              torch.log(torch.arange(1, H + 1, device=dev,
+                                     dtype=torch.float32)),
+              torch.randn(H, generator=g, device=dev))
+    ss = torch.randn(B, H, P, N, generator=g, device=dev)
+    cs = torch.randn(B, W - 1, C, generator=g, device=dev).to(torch.bfloat16)
+    return params, ss, cs
+
+
+def _ssm_projection(g, B, H, P, N, dtype, pad=8):
+    C = H * P + 2 * N
+    proj = torch.randn(B, pad + C + H, generator=g, device="cuda").to(dtype)
+    return proj[:, pad:pad + C], proj[:, pad + C:]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,P,N,W", [(16, 80, 64, 128, 4), (3, 5, 24, 16, 4),
+                                       (2, 3, 100, 4, 2), (1, 7, 8, 64, 8)])
+def test_ssm_decode_kernel_matches_plain(gen, dtype, B, H, P, N, W):
+    """Chained steps (each side feeds its own states on): the conv state
+    exactly (it only shifts the inputs), y and the ssm state at f32's 1e-4
+    or bf16's 1e-2 (the SiLU output rounds to bf16 in both, and an f32
+    summation-order difference can cross a bf16 rounding boundary).
+    Every lane moves: nothing is masked."""
+    params, ss, cs = _ssm_decode_inputs(gen, B, H, P, N, W, dtype)
+    ss_p, cs_p = ss.clone(), cs.clone()
+    for _ in range(8):
+        xbc, dt = _ssm_projection(gen, B, H, P, N, dtype)
+        before = ss.clone()
+        y = ops.ssm_decode(cs, ss, xbc, dt, *params)
+        y_p, ss_p, cs_p = smd.ssm_decode_plain(cs_p, ss_p, xbc, dt, *params)
+        cs_p = cs_p.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(cs, cs_p)
+        torch.testing.assert_close(ss, ss_p, **TOL[dtype])
+        torch.testing.assert_close(y, y_p, **TOL[dtype])
+        assert bool((ss != before).flatten(1).any(1).all())
+
+
+def test_ssm_decode_kernel_refusals_and_count(gen):
+    params, ss, cs = _ssm_decode_inputs(gen, 2, 3, 8, 16, 4, torch.float32)
+    xbc, dt = _ssm_projection(gen, 2, 3, 8, 16, torch.float32)
+    ops.reset_launch_counts()
+    ops.ssm_decode(cs, ss, xbc, dt, *params)
+    assert ops.launch_counts()["ssm_decode"] == 1
+    with pytest.raises(ValueError, match="conv_state"):
+        ops.ssm_decode(cs.float(), ss, xbc, dt, *params)
+    with pytest.raises(ValueError, match="share a dtype"):
+        ops.ssm_decode(cs, ss, xbc.bfloat16(), dt, *params)
+    p12, ss12, cs12 = _ssm_decode_inputs(gen, 2, 3, 8, 12, 4, torch.float32)
+    x12, d12 = _ssm_projection(gen, 2, 3, 8, 12, torch.float32)
+    with pytest.raises(ValueError, match="state size"):
+        ops.ssm_decode(cs12, ss12, x12, d12, *p12)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssm_decode"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the decode horizon as one CUDA graph (serving/cuda_graph.py)
+# ---------------------------------------------------------------------------
+
+class TickCountingEngine(te.Engine):
+    """Counts the scheduler's decode ticks (one ``decode_fn`` lookup each
+    when no fault is injected)."""
+
+    ticks = 0
+
+    def decode_fn(self, horizon, lanewise=False):
+        self.ticks += 1
+        return super().decode_fn(horizon, lanewise)
+
+
+def _graph_serve(arch, params, scorer, eager, sampled, faults=None):
+    cfg = serving_config(arch)
+    greedy = SamplingParams(temperature=0.0, top_k=0, top_p=1.0,
+                            max_new_tokens=40)
+    hot = SamplingParams(temperature=0.8, top_k=20, top_p=0.95,
+                         max_new_tokens=40)
+    ecfg = te.EngineConfig(max_batch=8, num_blocks=16, capacity=128,
+                           max_new_tokens=40, sampling=greedy,
+                           use_kernel=True, decode_horizon=4, faults=faults,
+                           kv_dtype="f32" if arch.startswith("qwen3")
+                           else "bf16", seed=3)
+    eng = TickCountingEngine(params, cfg, ecfg, make_policy("step"),
+                             scorer_params=scorer, _eager_decode=eager)
+    tok = get_tokenizer()
+    # greedy: 8 traces of one prompt, which the 16-block pool prunes;
+    # sampled: 4 traces at temperature 0.8 beside 4 greedy ones
+    jobs = ([("3+5-2=", 4, hot), ("7-1+4=", 4, greedy)] if sampled
+            else [("3+5-2=", 8, greedy)])
+    reqs = [te.Request(request_id=i, n_traces=n,
+                       prompt_tokens=tok.encode(p, add_bos=True),
+                       policy=make_policy("step"), sampling=sp)
+            for i, (p, n, sp) in enumerate(jobs)]
+    ops.reset_launch_counts()
+    res = eng.serve_batch(reqs)
+    torch.cuda.synchronize()
+    assert eng.pool_drained()
+    return eng, res, ops.launch_counts()
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3-4b-thinking", "mamba2-2.7b"])
+def test_graphed_engine_matches_eager_engine(gen, arch, sampled):
+    """The smoke config on the card, f32 params, STEP: one replay per tick,
+    the eager engine's kernel launches, identical tokens, statuses and
+    prunes, scores within 1e-5. ``sampled`` serves one request at
+    temperature 0.8 beside a greedy one (the lane-wise sampler) from the
+    same generator seed: the graph advances the registered generator's
+    Philox offset as the eager draws do."""
+    cfg = serving_config(arch)
+    params = _f32(init_params(cfg, gen))
+    scorer = init_scorer(gen, cfg.d_model)
+    e_eng, e_res, e_counts = _graph_serve(arch, params, scorer, True,
+                                          sampled)
+    g_eng, g_res, g_counts = _graph_serve(arch, params, scorer, False,
+                                          sampled)
+    assert g_counts["decode_graph_replays"] == g_eng.ticks == e_eng.ticks
+    assert g_counts["decode_graph_captures"] == len(g_eng._decode_fns)
+    assert e_counts["decode_graph_replays"] == 0
+    kernels = [k for k in e_counts if not k.startswith("decode_graph")]
+    assert {k: g_counts[k] for k in kernels} == \
+        {k: e_counts[k] for k in kernels}
+    assert g_counts["step_score"] > 0
+    if arch == "mamba2-2.7b":
+        assert g_counts["ssm_decode"] == g_counts["step_score"] * cfg.num_layers
+    for g, e in zip(g_res, e_res):
+        assert (g.num_pruned, g.status) == (e.num_pruned, e.status)
+        for tg, te_ in zip(g.traces, e.traces):
+            assert tg.output_tokens == te_.output_tokens
+            assert tg.status == te_.status
+            for a, b in zip(tg.step_scores, te_.step_scores):
+                assert abs(a - b) <= 1e-5
+    if not sampled:
+        assert g_res[0].num_pruned > 0
+
+
+def test_degrade_to_dense_drops_the_kernel_graphs(gen):
+    """Injected step faults past the retry limit take the kernel->dense
+    rung mid-serve: the kernel path's graphs go, dense ones are captured,
+    and the tokens equal the eager engine's under the same plan."""
+    cfg = serving_config()
+    params = _f32(init_params(cfg, gen))
+    scorer = init_scorer(gen, cfg.d_model)
+    runs = {eager: _graph_serve("qwen3-4b-thinking", params, scorer, eager,
+                                False, faults="step@3x4")
+            for eager in (True, False)}
+    (e_eng, e_res, _), (g_eng, g_res, g_counts) = runs[True], runs[False]
+    for eng in (e_eng, g_eng):
+        assert eng.fault_stats.degraded_to_dense == 1 and not eng.use_kernel
+    # kernel graphs first, then dense ones, which launch no kernel
+    assert g_counts["decode_graph_captures"] > len(g_eng._decode_fns)
+    assert all(not f.launches for f in g_eng._decode_fns.values())
+    for g, e in zip(g_res, e_res):
+        for tg, te_ in zip(g.traces, e.traces):
+            assert tg.output_tokens == te_.output_tokens

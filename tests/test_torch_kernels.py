@@ -183,4 +183,6 @@ def test_cpu_wrappers_count_no_launch():
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
                                    "step_score": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssm_decode": 0,
+                                   "decode_graph_replays": 0,
+                                   "decode_graph_captures": 0}
