@@ -7,18 +7,23 @@ Phases, each printing one JSON line:
 
   1. device   — the card's name, count, and nvidia-smi's power limit;
   2. build    — nvcc builds every kernel from ``src/repro_torch/csrc``
-                (in parallel) and reports registers and spills (also in
-                short per kernel for the scorer's and the SSD scan's
-                passes), and the HMMA/HGMMA (tensor-core) instructions in
-                each library's SASS where ``cuobjdump`` exists;
+                (in parallel) and reports registers and spills per kernel
+                instance (template arguments demangled where a demangler
+                exists), the instances below hd 128 that spill more than
+                their hd-128 twin, and the HMMA/HGMMA (tensor-core)
+                instructions in each library's SASS where ``cuobjdump``
+                exists;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
-                on the card, at the main path's full-width shapes: the
+                on the card, at the main paths' full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a, K1b) and over
-                int8/fp8 pools (K1c), the scorer (K2), flash attention (K3),
-                the SSD scan (K4: y and the final state, also over a
-                padded sequence and with the init's steep decays), and
-                Mamba2's decode state update (``ssm_decode``: 128 chained
-                steps, every lane's state moving);
+                int8/fp8 pools (K1c) at qwen3's heads (32 over 8, hd 128),
+                zamba2's (32 over 32, hd 80) and granite-20b's (48 over 1,
+                hd 128), the scorer (K2), flash attention (K3, hd 128 and
+                80), the SSD scan (K4 at mamba2's state 128 and zamba2's
+                64: y and the final state, also over a padded sequence and
+                with the init's steep decays), and Mamba2's decode state
+                update (``ssm_decode`` at both states: 128 chained steps,
+                every lane's state moving);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
                 seeded weights) under memory pressure through
                 ``Engine.serve``, kernels on: launch counts, pruning, a
@@ -47,12 +52,14 @@ Phases, each printing one JSON line:
                 ``build_step_scorer`` and a STEP serve with that scorer;
   9. times    — device time of each kernel, its plain version and the
                 library yardstick (one CUDA-graph replay per timed call,
-                cold L2), and each kernel's bound; also K1a over long
-                rows (``paged_attention_decode_long``, 16 lanes of
-                1024-4096 slots) and K2 at the kernels phase's 64 lanes
-                (``step_score_b64``), on this line only, and the device
-                time of each launch inside K2, K4 and ``ssm_decode``
-                (torch.profiler);
+                cold L2), and each kernel's bound, at the serve and
+                forward phases' shapes (qwen3, and the ``_hd80``, ``_g48``
+                and ``_zamba2`` instances of this slice's paths); also K1a
+                over long rows (``paged_attention_decode_long``, 16 lanes
+                of 1024-4096 slots), K2 at the kernels phase's 64 lanes
+                (``step_score_b64``) and K3 at hd 80 in f32, on this line
+                only, and the device time of each launch inside K2, K4 and
+                ``ssm_decode`` (torch.profiler);
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay, and its kernels
                 by device time (torch.profiler);
@@ -66,6 +73,18 @@ Phases, each printing one JSON line:
  12. forward_ssd — ``forward_full(use_kernel=True)`` of mamba2 at full
                 width against the dense forward: one K4 launch per layer;
  13. step_mamba2 — phase 10 for mamba2's decode iteration.
+ 14. serve_zamba2, reference_zamba2, forward_zamba2, step_zamba2 —
+                phases 11-13 for zamba2-2.7b at full width (54 Mamba2
+                layers in 9 groups, each followed by the one shared
+                attention block at hd 80): K1a once per shared-attention
+                invocation and iteration, ``ssm_decode`` once per Mamba2
+                layer, K2 once; the forward runs K4 per Mamba2 layer and
+                K3 (hd 80) per invocation;
+ 15. dense_archs — qwen3-1.7b, starcoder2-3b, phi4-mini-3.8b and
+                granite-20b at full width, one at a time: a graphed STEP
+                serve against the eager one (1 x 8 traces, 32 new
+                tokens), then each arch's smoke-config kernel engine
+                against its dense engine.
 
 The line before the last is the kernel table as one JSON object, the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -197,21 +216,60 @@ def tensor_core_instructions(build, names):
     return counts
 
 
+def demangle(names):
+    """C++ names of mangled kernel symbols, short: the kernel and its
+    template arguments (``decode_kernel<80, 1, bf16, bf16>``), or the
+    mangled names where no demangler is installed."""
+    import shutil
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.split("\n")
+    short = []
+    for full in out[:len(names)]:
+        full = full.replace("(anonymous namespace)::", "").split("(")[0]
+        for long, name in (("__nv_bfloat16", "bf16"), ("__nv_fp8_e4m3", "fp8"),
+                           ("signed char", "int8"), ("float", "f32"),
+                           ("void ", "")):
+            full = full.replace(long, name)
+        short.append(full.strip())
+    return short
+
+
 def registers_spills(fns):
-    """ptxas entries of one source -> {kernel: {"registers": n,
-    "spill_bytes": stores + loads}}, the kernel named short."""
+    """ptxas entries of one source -> {kernel<template args>: {"registers":
+    n, "spill_bytes": stores + loads}}."""
     out = {}
-    for f in fns:
-        m = re.search(r"\d([a-z_]+_kernel)", f["function"])
-        name = m.group(1) if m else f["function"]
-        if "bfloat16" in f["function"]:
-            name += "<bf16>"
-        elif "IfE" in f["function"]:
-            name += "<f32>"
+    for f, name in zip(fns, demangle([f["function"] for f in fns])):
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
                                              f["spills"])]
         out[name] = {"registers": f["registers"], "spill_bytes": sum(spills)}
     return out
+
+
+def spills_beyond_hd128(table):
+    """The head-dim-templated attention kernels (head dim first among
+    their template arguments) whose instance at a head dim below 128
+    spills more than the same instance at 128."""
+    worse = []
+    for name, row in table.items():
+        m = re.match(r"(\w+)<(\d+)(.*)>$", name)
+        if not m or int(m.group(2)) >= 128:
+            continue
+        ref = table.get(f"{m.group(1)}<128{m.group(3)}>")
+        if ref is not None and row["spill_bytes"] > ref["spill_bytes"]:
+            worse.append([name, row["spill_bytes"], ref["spill_bytes"]])
+    return worse
+
+
+# The instances that spill more than their head-dim-128 counterpart
+# (ptxas of CUDA 12.8 for sm_90a), with their spill bytes: the 4-row decode
+# instance at hd 80 over a bf16 pool, which no config reaches (zamba2's
+# group is one query head per kv head). Any other instance, or more bytes,
+# fails the build phase.
+KNOWN_SPILLS_BEYOND_HD128 = {"decode_kernel<80, 4, f32, bf16>": 42,
+                             "decode_kernel<80, 4, bf16, bf16>": 42}
 
 
 def phase_build(ops):
@@ -226,11 +284,16 @@ def phase_build(ops):
         summary[src] = [{"function": f, "spills": s.strip(),
                          "registers": int(r)} for f, s, r in fns]
     tc = tensor_core_instructions(ops.build, ops.SOURCES)
+    table = {src: registers_spills(summary.get(src, []))
+             for src in ops.SOURCES}
+    attention = {**table["paged_attention"], **table["flash_attention"]}
+    worse = spills_beyond_hd128(attention)
     emit("build", seconds=round(seconds, 3), ptxas=summary,
-         registers_spills={src: registers_spills(summary.get(src, []))
-                           for src in ("step_score", "ssd_scan",
-                                       "ssm_decode")},
+         registers_spills=table, spills_beyond_hd128=worse,
          tensor_core_instructions=tc)
+    for name, spill, _ in worse:
+        check(spill <= KNOWN_SPILLS_BEYOND_HD128.get(name, 0),
+              f"{name} spills {spill} B, beyond its hd-128 instance")
     if tc != "not available":
         check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
               > 0, "K3 has no tensor-core instruction")
@@ -280,20 +343,21 @@ def ssm_projection(g, dtype, B=16, H=80, P=64, N=128):
     return proj[:, H * P:H * P + C], proj[:, H * P + C:]
 
 
-def check_ssm_decode(smd, g, errs, steps=128):
+def check_ssm_decode(smd, g, errs, steps=128, N=128, key="ssm_decode"):
     """``ssm_decode`` against its plain version over ``steps`` chained
     decode steps at full width, each side feeding its own states on: the
     conv state exactly, y and the ssm state within the f32 (1e-4) or bf16
     (1e-2) tolerance. Lanes 0-3 are re-fed one fixed projection, as a
     stopped lane re-feeds its last token: their state must move at every
-    step, as every lane's does (nothing is masked)."""
+    step, as every lane's does (nothing is masked). ``N``: the state size
+    (mamba2 128, zamba2 64)."""
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        params, ssm, conv = ssm_decode_inputs(g, dtype)
+        params, ssm, conv = ssm_decode_inputs(g, dtype, N=N)
         ssm_p, conv_p = ssm.clone(), conv.clone()
-        frozen = ssm_projection(g, dtype)
+        frozen = ssm_projection(g, dtype, N=N)
         err = 0.0
         for _ in range(steps):
-            xbc, dt = ssm_projection(g, dtype)
+            xbc, dt = ssm_projection(g, dtype, N=N)
             xbc[:4], dt[:4] = frozen[0][:4], frozen[1][:4]
             before = ssm.clone()
             y = smd.ssm_decode(conv, ssm, xbc, dt, *params)
@@ -307,49 +371,44 @@ def check_ssm_decode(smd, g, errs, steps=128):
             err = max(err, compare(f"ssm_decode {dtype} state", ssm, ssm_p,
                                    tol),
                       compare(f"ssm_decode {dtype} y", y, y_p, tol))
-        errs[f"ssm_decode_{str(dtype)[6:]}"] = err
+        errs[f"{key}_{str(dtype)[6:]}"] = err
         del params, ssm, conv, ssm_p, conv_p
 
 
-def phase_kernels(pa, ss, fa, sd, kvq, smd):
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    H, KVH, hd, bp = 32, 8, 128, 32
+def check_paged(pa, kvq, g, errs, B, H, KVH, hd, bp, lens, chunks,
+                quant_chunks, tag=""):
+    """K1 against its plain version at one head shape, with queries in
+    bf16 and f32: the decode face over B lanes of ``lens`` (a float pool,
+    K1a; int8 and fp8 pools, K1c) and the prefill face over each (C,
+    prefix, num_valid) of ``chunks`` (float pool, K1b) and
+    ``quant_chunks`` (K1c), each without a window and with one of 128.
+    ``errs`` gains ``{face}[_{pool}]{tag}_{dtype}``."""
     scale = 1.0 / math.sqrt(hd)
-    errs = {}
-    # K1a: decode face, B = 64, ragged lengths incl. empty, one slot,
-    # mid-page and a full 512-slot window
-    lens = [0, 1, 7, 512, 200, 33] + [(37 * i) % 513 for i in range(58)]
-    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        args = decode_inputs(g, 64, H, KVH, hd, bp, lens, dtype)
+    dtypes = ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL))
+    for dtype, tol in dtypes:
+        args = decode_inputs(g, B, H, KVH, hd, bp, lens, dtype)
         got = pa.paged_attention(*args, scale=scale)
         want = pa.paged_attention_plain(*args, scale)
         torch.cuda.synchronize()
-        check(bool((got[0] == 0).all()), "K1a: empty-cache row not zero")
-        errs[f"decode_{str(dtype)[6:]}"] = compare(
-            f"K1a {dtype}", got, want, tol)
-    # K1b: prefill face, B = 1, C in {16, 64}, ragged prefix, padding,
-    # window in {None, 128}
-    for C, prefix, nvalid in ((16, 37, 11), (64, 200, 64), (16, 0, 16),
-                              (64, 448, 50)):
-        for window in (None, 128):
-            for dtype, tol in ((torch.bfloat16, BF16_TOL),
-                               (torch.float32, F32_TOL)):
-                args = prefill_inputs(g, C, H, KVH, hd, bp, prefix, nvalid,
-                                      dtype)
-                got = pa.paged_attention_prefill(*args, scale=scale,
-                                                 window=window)
-                want = pa.paged_attention_prefill_plain(*args, scale, window)
-                torch.cuda.synchronize()
-                key = f"prefill_{str(dtype)[6:]}"
-                errs[key] = max(errs.get(key, 0.0), compare(
-                    f"K1b C={C} prefix={prefix} window={window} {dtype}",
-                    got, want, tol))
-    # K1c: both faces over int8 and fp8 pools (f32 scales per slot), the
-    # same shapes and queries in bf16 and f32
+        check(bool((got[lens.index(0)] == 0).all()),
+              "K1a: empty-cache row not zero")
+        errs[f"decode{tag}_{str(dtype)[6:]}"] = compare(
+            f"K1a{tag} {dtype}", got, want, tol)
+    for (C, prefix, nvalid), window in ((c, w) for c in chunks
+                                        for w in (None, 128)):
+        for dtype, tol in dtypes:
+            args = prefill_inputs(g, C, H, KVH, hd, bp, prefix, nvalid, dtype)
+            got = pa.paged_attention_prefill(*args, scale=scale, window=window)
+            want = pa.paged_attention_prefill_plain(*args, scale, window)
+            torch.cuda.synchronize()
+            key = f"prefill{tag}_{str(dtype)[6:]}"
+            errs[key] = max(errs.get(key, 0.0), compare(
+                f"K1b{tag} C={C} prefix={prefix} window={window} {dtype}",
+                got, want, tol))
+    # K1c: the same shapes over int8 and fp8 pools (f32 scales per slot)
     for kv_dtype in QUANT:
-        for dtype, tol in ((torch.bfloat16, BF16_TOL),
-                           (torch.float32, F32_TOL)):
-            q, kp, vp, bt, cl = decode_inputs(g, 64, H, KVH, hd, bp, lens,
+        for dtype, tol in dtypes:
+            q, kp, vp, bt, cl = decode_inputs(g, B, H, KVH, hd, bp, lens,
                                               torch.float32)
             kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
             args = (q.to(dtype), kq, vq, bt, cl)
@@ -357,28 +416,32 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
                                      v_scale=vs)
             want = pa.paged_attention_plain(*args, scale, ks, vs)
             torch.cuda.synchronize()
-            check(bool((got[0] == 0).all()), "K1c: empty-cache row not zero")
-            errs[f"decode_{kv_dtype}_{str(dtype)[6:]}"] = compare(
-                f"K1c decode {kv_dtype} {dtype}", got, want, tol)
-            for C, prefix, nvalid in ((16, 64, 16), (64, 200, 50)):
-                for window in (None, 128):
-                    q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
-                        g, C, H, KVH, hd, bp, prefix, nvalid, torch.float32)
-                    kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
-                    args = (q.to(dtype), kq, vq, bt, pl, nv, ok.to(dtype),
-                            ov.to(dtype))
-                    got = pa.paged_attention_prefill(
-                        *args, scale=scale, window=window, k_scale=ks,
-                        v_scale=vs)
-                    want = pa.paged_attention_prefill_plain(
-                        *args, scale, window, ks, vs)
-                    torch.cuda.synchronize()
-                    key = f"prefill_{kv_dtype}_{str(dtype)[6:]}"
-                    errs[key] = max(errs.get(key, 0.0), compare(
-                        f"K1c prefill {kv_dtype} C={C} prefix={prefix} "
-                        f"window={window} {dtype}", got, want, tol))
-    # K3: B = 1, H = 32, S = 2048, hd = 128; causal, a window of 128, and
-    # non-causal
+            check(bool((got[lens.index(0)] == 0).all()),
+                  "K1c: empty-cache row not zero")
+            errs[f"decode_{kv_dtype}{tag}_{str(dtype)[6:]}"] = compare(
+                f"K1c{tag} decode {kv_dtype} {dtype}", got, want, tol)
+            for (C, prefix, nvalid), window in ((c, w) for c in quant_chunks
+                                                for w in (None, 128)):
+                q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
+                    g, C, H, KVH, hd, bp, prefix, nvalid, torch.float32)
+                kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+                args = (q.to(dtype), kq, vq, bt, pl, nv, ok.to(dtype),
+                        ov.to(dtype))
+                got = pa.paged_attention_prefill(
+                    *args, scale=scale, window=window, k_scale=ks,
+                    v_scale=vs)
+                want = pa.paged_attention_prefill_plain(
+                    *args, scale, window, ks, vs)
+                torch.cuda.synchronize()
+                key = f"prefill_{kv_dtype}{tag}_{str(dtype)[6:]}"
+                errs[key] = max(errs.get(key, 0.0), compare(
+                    f"K1c{tag} prefill {kv_dtype} C={C} prefix={prefix} "
+                    f"window={window} {dtype}", got, want, tol))
+
+
+def check_flash(fa, g, errs, H, hd, tag=""):
+    """K3 against its plain version at B = 1, S = 2048: causal, a window
+    of 128 and non-causal, in bf16 and f32."""
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         qkv = [torch.randn(1, H, 2048, hd, generator=g, device="cuda")
                .to(dtype) for _ in range(3)]
@@ -386,29 +449,20 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
             got = fa.flash_attention(*qkv, causal=causal, window=window)
             want = fa.flash_attention_plain(*qkv, causal, window)
             torch.cuda.synchronize()
-            key = f"flash_{str(dtype)[6:]}"
+            key = f"flash{tag}_{str(dtype)[6:]}"
             errs[key] = max(errs.get(key, 0.0), compare(
-                f"K3 causal={causal} window={window} {dtype}", got, want,
+                f"K3{tag} causal={causal} window={window} {dtype}", got, want,
                 tol))
         del qkv
-    # K2: B = 64, D = 2560, hidden in bf16 and f32
-    D = 2560
-    w1 = torch.randn(D, 512, generator=g, device="cuda") * (2.0 / D) ** 0.5
-    b1 = torch.randn(512, generator=g, device="cuda") * 0.1
-    w2 = torch.randn(512, 1, generator=g, device="cuda") * 512 ** -0.5
-    b2 = torch.randn(1, generator=g, device="cuda") * 0.1
-    for dtype in (torch.bfloat16, torch.float32):
-        h = torch.randn(64, D, generator=g, device="cuda").to(dtype)
-        got = ss.step_score(h, w1, b1, w2, b2)
-        want = ss.step_score_plain(h, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        errs[f"score_{str(dtype)[6:]}"] = compare(f"K2 {dtype}", got, want,
-                                                  SCORE_TOL)
-    # K4: mamba2's full-width scan (B = 1, S = 2048, H = 80, P = 64,
-    # N = 128, chunk 256), the same with the init's decay rates and large
-    # steps, and S = 1000 padded to 1024 with dt = 0 as the mixer pads
-    for S, stress in ((2048, False), (2048, True), (1000, True)):
-        x, dt, A, Bm, Cm = ssd_inputs(g, S, stress)
+
+
+def check_ssd(sd, g, errs, N, shapes, key):
+    """K4 at full width (B = 1, H = 80, P = 64, state ``N``, chunk 256)
+    against its sequential plain version: y and the final state over each
+    (S, stress) of ``shapes``; an S short of a chunk multiple is padded
+    with dt = 0, as the mixer pads."""
+    for S, stress in shapes:
+        x, dt, A, Bm, Cm = ssd_inputs(g, S, stress, N=N)
         pad = (-S) % 256
         padded = [torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2)
                                           + [0, pad]) for t in (x, dt, Bm, Cm)]
@@ -416,12 +470,67 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
                            chunk=256)
         yp, hp = sd.ssd_scan_plain(x, dt, A, Bm, Cm)
         torch.cuda.synchronize()
-        errs["ssd_scan"] = max(
-            errs.get("ssd_scan", 0.0),
-            compare(f"K4 S={S} stress={stress} y", y[:, :S], yp, SSD_TOL),
-            compare(f"K4 S={S} stress={stress} state", h, hp, SSD_TOL))
+        errs[key] = max(
+            errs.get(key, 0.0),
+            compare(f"K4 N={N} S={S} stress={stress} y", y[:, :S], yp,
+                    SSD_TOL),
+            compare(f"K4 N={N} S={S} stress={stress} state", h, hp, SSD_TOL))
         del x, dt, Bm, Cm, padded, y, yp
+
+
+def phase_kernels(pa, ss, fa, sd, kvq, smd):
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    # qwen3-4b-thinking (H 32, KVH 8, hd 128): K1a over B = 64 ragged
+    # lengths incl. empty, one slot, mid-page and a full 512-slot window;
+    # K1b at C in {16, 64} over ragged prefixes, with padding
+    lens = [0, 1, 7, 512, 200, 33] + [(37 * i) % 513 for i in range(58)]
+    check_paged(pa, kvq, g, errs, 64, 32, 8, 128, 32, lens,
+                [(16, 37, 11), (64, 200, 64), (16, 0, 16), (64, 448, 50)],
+                [(16, 64, 16), (64, 200, 50)])
+    # zamba2's shared attention (H = KVH = 32, hd 80) over the serve
+    # phase's 16 lanes, and granite-20b's 48 query heads over one kv head
+    # (hd 128) over the dense_archs phase's 8 lanes
+    lens16 = [0, 1] + [15 + (128 * i) // 13 for i in range(14)]
+    check_paged(pa, kvq, g, errs, 16, 32, 32, 80, 32, lens16,
+                [(16, 64, 16), (64, 200, 50)], [(16, 64, 16)], "_hd80")
+    lens8 = [0] + [15 + (32 * i) // 6 for i in range(7)]
+    check_paged(pa, kvq, g, errs, 8, 48, 1, 128, 32, lens8, [], [], "_g48")
+    # the other dense archs' head groups (hd 128) over the same 8 lanes:
+    # qwen3-1.7b 16 over 8 (G = 2), phi4-mini 24 over 8 (G = 3, a partly
+    # filled group of rows), starcoder2 24 over 2 (G = 12)
+    for H, KVH in ((16, 8), (24, 8), (24, 2)):
+        check_paged(pa, kvq, g, errs, 8, H, KVH, 128, 32, lens8, [], [],
+                    f"_h{H}kv{KVH}")
+    # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80
+    check_flash(fa, g, errs, 32, 128)
+    check_flash(fa, g, errs, 32, 80, "_hd80")
+    # K2: B = 64, D = 2560 (qwen3-4b, mamba2, zamba2), hidden in bf16 and
+    # f32; then the dense archs' widths over the dense_archs phase's 8
+    # lanes: D = 2048 (qwen3-1.7b), 3072 (phi4-mini, starcoder2) and 6144
+    # (granite-20b)
+    for B, D in ((64, 2560), (8, 2048), (8, 3072), (8, 6144)):
+        w1 = torch.randn(D, 512, generator=g, device="cuda") * (2.0 / D) ** .5
+        b1 = torch.randn(512, generator=g, device="cuda") * 0.1
+        w2 = torch.randn(512, 1, generator=g, device="cuda") * 512 ** -0.5
+        b2 = torch.randn(1, generator=g, device="cuda") * 0.1
+        tag = "" if D == 2560 else f"_d{D}"
+        for dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn(B, D, generator=g, device="cuda").to(dtype)
+            got = ss.step_score(h, w1, b1, w2, b2)
+            want = ss.step_score_plain(h, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            errs[f"score{tag}_{str(dtype)[6:]}"] = compare(
+                f"K2 B={B} D={D} {dtype}", got, want, SCORE_TOL)
+    # K4: mamba2's full-width scan (N = 128), the same with the init's
+    # decay rates and large steps, and S = 1000 padded to 1024; zamba2's
+    # (N = 64) plain and with the init's decays
+    check_ssd(sd, g, errs, 128, ((2048, False), (2048, True), (1000, True)),
+              "ssd_scan")
+    check_ssd(sd, g, errs, 64, ((2048, False), (2048, True)),
+              "ssd_scan_zamba2")
     check_ssm_decode(smd, g, errs)
+    check_ssm_decode(smd, g, errs, N=64, key="ssm_decode_zamba2")
     emit("kernels", max_abs_err=errs,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
@@ -713,19 +822,29 @@ def phase_serve_sampled(rt, ops, cfg, params, scorer):
     return out
 
 
+def no_eos(params, cfg, eos_id):
+    """Zero the output projection's EOS row, in place: EOS's logit is then
+    0, below the largest logit of the other tokens (random weights), so a
+    greedy trace never ends before its token budget."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    w[eos_id] = 0
+    return params
+
+
 def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
                           arch="qwen3-4b-thinking"):
     """Kernel engine vs dense engine on a small input: ``arch``'s smoke
-    config, f32 params, greedy STEP under memory pressure over a
-    ``kv_dtype`` pool — identical tokens, statuses and prunes, step
-    scores within 1e-5 (both paths dequantize an int8/fp8 pool to the
-    same f32 values; mamba2 has no pool)."""
+    config, f32 params with EOS suppressed (:func:`no_eos`: every trace
+    decodes its 40 tokens, so 8 traces fill the 16-block pool and STEP
+    prunes), greedy STEP over a ``kv_dtype`` pool — identical tokens,
+    statuses and prunes, step scores within 1e-5 (both paths dequantize
+    an int8/fp8 pool to the same f32 values; mamba2 has no pool)."""
     E = rt["engine"]
     cfg = rt["registry"].serving_config(arch)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    params = to_f32(rt["init"].init_params(cfg, g))
-    scorer = rt["scorer"].init_scorer(g, cfg.d_model)
     tok = rt["tokenizer"].get_tokenizer()
+    params = no_eos(to_f32(rt["init"].init_params(cfg, g)), cfg, tok.eos_id)
+    scorer = rt["scorer"].init_scorer(g, cfg.d_model)
     prompt = tok.encode("3+5-2=", add_bos=True)
     outs = {}
     for use_kernel in (True, False):
@@ -745,6 +864,7 @@ def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
           == [t.output_tokens for t in d.traces], "kernel != dense tokens")
     check([t.status for t in k.traces] == [t.status for t in d.traces],
           "kernel != dense statuses")
+    check(k.num_pruned == d.num_pruned, "kernel != dense prunes")
     check(k.num_pruned > 0, "no pruning in the reference scenario")
     err = max((abs(a - b) for tk, td in zip(k.traces, d.traces)
                for a, b in zip(tk.step_scores, td.step_scores)), default=0.0)
@@ -754,26 +874,40 @@ def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
         name = f"reference_{arch.split('-')[0]}"
     emit(name, config=cfg.name, kv_dtype=kv_dtype, prefill_chunk_size=chunk,
          tokens_identical=True, num_pruned=k.num_pruned,
+         tokens_compared=sum(len(t.output_tokens) for t in k.traces),
          step_scores=sum(len(t.step_scores) for t in k.traces),
          max_step_score_err=err)
 
 
-def phase_serve_mamba2(rt, ops, cfg, params, scorer):
-    """STEP serving of mamba2-2.7b at full width: 16 traces of one
-    prompt, greedy, 128 new tokens, 80 blocks, horizon 4, kernels on. The
-    ssm stack has no KV pool: the blocks are the engine's accounting of
-    each trace's tokens, and its device state is the per-slot recurrent
-    state (``ssm_state`` f32 and ``conv_state`` bf16 for 16 slots). The
-    path runs the fused scorer (K2) every iteration; the one-shot prefill
-    is dense, as in the JAX package, so K4 is not on it."""
+def recurrent_traffic(rt, **over):
+    """The recurrent serve phases' prompt and engine config (fields in
+    ``over`` replaced)."""
     E = rt["engine"]
     tok = rt["tokenizer"].get_tokenizer()
     problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
     prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
-    ecfg = E.EngineConfig(max_batch=16, num_blocks=80, capacity=512,
-                          max_new_tokens=128, sampling=greedy(rt, 128),
-                          use_kernel="auto", decode_horizon=4,
-                          prefix_cache=True, faults=None, kv_dtype="bf16")
+    fields = dict(max_batch=16, num_blocks=80, capacity=512,
+                  max_new_tokens=128, sampling=greedy(rt, 128),
+                  use_kernel="auto", decode_horizon=4, prefix_cache=True,
+                  faults=None, kv_dtype="bf16")
+    fields.update(over)
+    return prompt, E.EngineConfig(**fields)
+
+
+def phase_serve_recurrent(rt, ops, cfg, params, scorer, name):
+    """STEP serving of mamba2-2.7b (``serve_mamba2``) or zamba2-2.7b
+    (``serve_zamba2``) at full width: 16 traces of one prompt, greedy,
+    128 new tokens, 80 blocks, horizon 4, kernels on. The device state is
+    the per-slot recurrent state (``ssm_state`` f32 and ``conv_state``
+    bf16 for 16 slots). mamba2 has no KV pool: the blocks are the
+    engine's accounting of each trace's tokens. zamba2 also pages the K/V
+    of its 9 shared-attention invocations (hd 80): K1a runs once per
+    invocation and iteration. Every iteration runs ``ssm_decode`` once
+    per Mamba2 layer and the fused scorer (K2) once; the one-shot prefill
+    is dense, as in the JAX package, so K3 and K4 are not on the path."""
+    hybrid = cfg.arch_type == "hybrid"
+    E = rt["engine"]
+    prompt, ecfg = recurrent_traffic(rt)
 
     def make_engine(eager):
         engine = tick_counting(E)(params, cfg, ecfg,
@@ -781,8 +915,10 @@ def phase_serve_mamba2(rt, ops, cfg, params, scorer):
                                   scorer_params=scorer, _eager_decode=eager)
         check(engine.use_kernel and engine.fused_scorer,
               "engine not on the kernel path")
-        check(engine.kv_block_bytes == 0 and engine.prefix_cache is None,
-              "an ssm stack has no KV pool to share")
+        check((engine.kv_block_bytes > 0) == hybrid
+              and engine.prefix_cache is None,
+              "a recurrent stack shares no prefix, and only the hybrid "
+              "pages K/V")
         return engine
 
     def run(engine):
@@ -790,12 +926,17 @@ def phase_serve_mamba2(rt, ops, cfg, params, scorer):
         check_result(res, engine)
         return [res]
 
-    first, report = graphed_vs_eager(ops, make_engine, run, "serve_mamba2")
+    first, report = graphed_vs_eager(ops, make_engine, run, name)
     res, launches, wall = (first["results"][0], first["launches"],
                            first["wall_s"])
-    check(launches["step_score"] > 0, "K2 never launched")
-    check(launches["ssm_decode"] == launches["step_score"] * cfg.num_layers,
+    iters = launches["step_score"]   # one fused scorer launch per iteration
+    check(iters > 0, "K2 never launched")
+    check(launches["ssm_decode"] == iters * cfg.num_layers,
           "ssm_decode did not run once per layer and iteration")
+    n_attn = len(cfg.attention_layer_ids())
+    check(launches["paged_attention_decode"] == iters * n_attn,
+          "K1a did not run once per shared-attention invocation and "
+          "iteration")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
           "STEP made a trace wait")
@@ -808,18 +949,164 @@ def phase_serve_mamba2(rt, ops, cfg, params, scorer):
            "wall_s": wall, "decode_s": res.decode_s,
            "prefill_s": res.prefill_s,
            "tokens_per_s": res.total_tokens / wall,
-           "decode_iterations": launches["step_score"],
-           "launches": launches, "recurrent_state_bytes": state,
+           "decode_iterations": iters,
+           "launches": launches,
+           "launches_per_iteration": {
+               k: launches[k] / iters for k in
+               ("paged_attention_decode", "ssm_decode", "step_score")},
+           "recurrent_state_bytes": state,
+           "kv_block_bytes": E.kv_quant.pool_block_bytes(cfg, "bf16"),
            "max_memory_allocated": first["max_memory_allocated"],
            "pool_drained": True, "graph": report}
-    emit("serve_mamba2", **out)
+    emit(name, **out)
     return out
 
 
-def phase_forward_ssd(rt, ops, cfg, params):
-    """``forward_full(use_kernel=True)`` of mamba2 at full width, B = 1,
-    S = 2048 (eight chunks of 256), against the dense chunked forward:
-    one K4 launch per layer.
+def phase_kernel_vs_dense(rt, ops, cfg, params, scorer, name):
+    """``serve_zamba2``'s traffic at full width through the kernel engine
+    and the dense engine, both with eager horizons, in f32 (the params
+    cast up, EOS suppressed by :func:`no_eos` so that every trace decodes
+    until STEP prunes it or its budget ends, an f32 pool) and in bf16
+    (the weights and pool ``serve_zamba2`` ran).
+
+    The decode path is not f32 throughout even with f32 params: the conv
+    state is bf16 (as in the JAX package), so each step rounds the last
+    three conv inputs of every Mamba2 layer to bf16, and a difference of
+    one f32 ulp between the paths can flip a rounding. Greedy serves of
+    random weights then part at near ties. So the serves are held to the
+    same statuses and prunes, and where they part the line gives the
+    first output token at which they do and the two largest logits there
+    of the dense and the kernel forward over the common prefix. The
+    paths' tokens are compared with the forward teacher-forced: each
+    path decodes the kernel serve's first trace from an empty cache (one
+    lane), and its logits (EOS's left out) are held against the f32
+    forward of the same tokens; the kernel path must be no farther from
+    it than twice the dense path's distance."""
+    E = rt["engine"]
+    M = rt["model"]
+    V = cfg.vocab_size
+    eos = rt["tokenizer"].get_tokenizer().eos_id
+    keep = torch.ones(V, dtype=torch.bool, device="cuda")
+    keep[eos] = False
+
+    def serve(p, use_kernel, kv_dtype):
+        prompt, ecfg = recurrent_traffic(rt, use_kernel=use_kernel,
+                                         kv_dtype=kv_dtype)
+        engine = E.Engine(p, cfg, ecfg, rt["pruning"].make_policy("step"),
+                          scorer_params=scorer, _eager_decode=True)
+        check(engine.use_kernel == use_kernel, f"{name}: engine path")
+        ops.reset_launch_counts()
+        res = engine.serve(prompt, 16)
+        launches = ops.launch_counts()
+        check_result(res, engine)
+        check((launches["ssm_decode"] > 0) == use_kernel
+              and (launches["paged_attention_decode"] > 0) == use_kernel,
+              f"{name}: kernel launches do not follow use_kernel")
+        del engine
+        gc.collect()
+        return prompt, res
+
+    def forward(p, seq, use_kernel=False):
+        with torch.no_grad():
+            lg = M.forward_full(p, cfg, torch.tensor(
+                [seq], device="cuda", dtype=torch.int32),
+                use_kernel=use_kernel)["logits"]
+        return lg[0, :, :V].float()
+
+    def forced(p, seq, use_kernel, kv_dtype):
+        """Logits [T, V] of one lane decoding ``seq`` from an empty cache."""
+        cache = M.init_decode_cache(cfg, 1, 512, kv_dtype=kv_dtype,
+                                    device="cuda")
+        out = []
+        with torch.no_grad():
+            for t, tok in enumerate(seq):
+                r = M.decode_step(
+                    p, cfg, torch.tensor([[tok]], device="cuda",
+                                         dtype=torch.int32),
+                    torch.tensor([t], device="cuda", dtype=torch.int32),
+                    cache, window_len=512, use_kernel=use_kernel)
+                out.append(r["logits"][0, :V].float())
+        return torch.stack(out)
+
+    def compare(p, kv_dtype, prompt, k, d, ref):
+        """The two serves, and the teacher-forced decodes against ``ref``
+        (the f32 forward's logits of the kernel serve's first trace)."""
+        tk = [t.output_tokens for t in k.traces]
+        td = [t.output_tokens for t in d.traces]
+        out = {"tokens_identical": tk == td,
+               "statuses_identical": [t.status for t in k.traces]
+               == [t.status for t in d.traces],
+               "total_tokens": [k.total_tokens, d.total_tokens],
+               "num_pruned": [k.num_pruned, d.num_pruned],
+               "step_scores": sum(len(t.step_scores) for t in k.traces),
+               "max_step_score_err": max(
+                   (abs(a - b) for a_, b_ in zip(k.traces, d.traces)
+                    for a, b in zip(a_.step_scores, b_.step_scores)),
+                   default=0.0)}
+        parts = [(j, i) for i, (a, b) in enumerate(zip(tk, td))
+                 for j in range(min(len(a), len(b))) if a[j] != b[j]]
+        out["traces_parted"] = len({i for _, i in parts})
+        if parts:
+            j, i = min(parts)
+            seq = prompt + tk[i][:j]
+            top = {}
+            for use_kernel in (False, True):
+                t = forward(p, seq, use_kernel)[-1].topk(2)
+                top["kernel" if use_kernel else "dense"] = [
+                    t.indices.tolist(), t.values.tolist()]
+            out.update({"first_parting": {"trace": i, "output_index": j},
+                        "kernel_token": tk[i][j], "dense_token": td[i][j],
+                        "forward_top2": top})
+        seq = prompt + tk[0]
+        dec = {uk: forced(p, seq, uk, kv_dtype)[:, keep]
+               for uk in (True, False)}
+        err = {uk: (dec[uk] - ref).abs().max(dim=1).values
+               for uk in (True, False)}
+        out["forced"] = {
+            "tokens": len(seq),
+            "kernel_err_vs_f32_forward": err[True].max().item(),
+            "dense_err_vs_f32_forward": err[False].max().item(),
+            "kernel_vs_dense_err": (dec[True] - dec[False]).abs().max()
+            .item(),
+            "dense_err_by_step": [round(x, 6) for x in
+                                  err[False][::8].tolist()],
+            "argmax_agreement": (dec[True].argmax(-1) == dec[False]
+                                 .argmax(-1)).float().mean().item()}
+        return out
+
+    p32 = no_eos(to_f32(params), cfg, eos)
+    prompt, k32 = serve(p32, True, "f32")
+    _, d32 = serve(p32, False, "f32")
+    ref = forward(p32, prompt + k32.traces[0].output_tokens)[:, keep]
+    f32 = compare(p32, "f32", prompt, k32, d32, ref)
+    _, kb = serve(params, True, "bf16")
+    _, db = serve(params, False, "bf16")
+    ref = forward(p32, prompt + kb.traces[0].output_tokens)[:, keep]
+    bf16 = compare(params, "bf16", prompt, kb, db, ref)
+    del p32, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(name, traffic="1 request x 16 traces, greedy, 128 new tokens, "
+         "80 blocks, horizon 4, eager", f32=f32, bf16=bf16)
+    for dt, r in (("f32", f32), ("bf16", bf16)):
+        check(r["statuses_identical"] and r["num_pruned"][0]
+              == r["num_pruned"][1] > 0,
+              f"{name}: {dt} kernel and dense statuses or prunes differ")
+        f = r["forced"]
+        check(f["kernel_err_vs_f32_forward"]
+              <= 2 * f["dense_err_vs_f32_forward"],
+              f"{name}: {dt} kernel decode farther from the f32 forward "
+              f"({f['kernel_err_vs_f32_forward']}) than twice the dense "
+              f"decode ({f['dense_err_vs_f32_forward']})")
+    return {"f32": f32, "bf16": bf16}
+
+
+def phase_forward_recurrent(rt, ops, cfg, params, name):
+    """``forward_full(use_kernel=True)`` of mamba2 (``forward_ssd``) or
+    zamba2 (``forward_zamba2``) at full width, B = 1, S = 2048 (eight
+    chunks of 256), against the dense forward: one K4 launch per Mamba2
+    layer, and for zamba2 one K3 launch (hd 80) per shared-attention
+    invocation.
 
     In f32 (the params cast up) the two paths differ only in the scan's
     summation order: their logits are held within 1e-3 of the largest
@@ -862,6 +1149,7 @@ def phase_forward_ssd(rt, ops, cfg, params):
     amax = dense32.abs().max().item()
     agree = (got.argmax(-1) == dense.argmax(-1)).float().mean().item()
     out = {"shape": "B=1 S=2048 chunk 256", "launches": launches,
+           "params_dtype": "bf16, and f32 for the f32 fields",
            "f32_logits_max_abs_err": err(got32, dense32),
            "f32_logits_max_abs": amax,
            "f32_argmax_agreement": (got32.argmax(-1) == dense32.argmax(-1))
@@ -871,12 +1159,15 @@ def phase_forward_ssd(rt, ops, cfg, params):
            "bf16_dense_err_vs_f32": err(dense, dense32),
            "argmax_agreement": agree, "wall_s": wall,
            "dense_wall_s": dense_wall}
-    emit("forward_ssd", **out)
-    for name, t in (("bf16", got), ("f32", got32)):
+    emit(name, **out)
+    for dt, t in (("bf16", got), ("f32", got32)):
         check(bool(torch.isfinite(t).all()),
-              f"K4 forward: non-finite {name} logits")
+              f"K4 forward: non-finite {dt} logits")
     check(launches["ssd_scan"] == cfg.num_layers,
           f"K4 launched {launches['ssd_scan']} times, not once per layer")
+    check(launches["flash_attention"] == len(cfg.attention_layer_ids()),
+          f"K3 launched {launches['flash_attention']} times, not once per "
+          f"attention layer")
     check(out["f32_logits_max_abs_err"] <= 1e-3 * amax,
           f"K4 forward f32: logits err {out['f32_logits_max_abs_err']} vs "
           f"max {amax}")
@@ -1161,165 +1452,202 @@ def bound_ms(nbytes, flops, dtype):
         "operations"
 
 
-def phase_times(pa, ss, fa, sd, kvq, smd):
+def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
+    """K1a (bf16 pool) or K1c (int8/fp8 pool) with bf16 queries over B
+    lanes of ``lens``; the library yardstick is SDPA over K/V gathered
+    (and dequantized) before the timed call. Bytes: the queries and the
+    output, the block tables and lengths, and each live page of K and V
+    once (codes plus their f32 scale per slot and kv head)."""
     import torch.nn.functional as F
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    H, KVH, hd, bp, page = 32, 8, 128, 32, 16
-    G = H // KVH
+    bf, page = torch.bfloat16, 16
     scale = 1.0 / math.sqrt(hd)
-    bf = torch.bfloat16
-    rows = {}
-
-    # K1a at the serve phase's decode shape: 16 lanes over 80-block
-    # pool rows of 32 pages, lengths across the prompt + 128 tokens range
-    B = 16
-    lens = [15 + (128 * i) // (B - 1) for i in range(B)]
-    q, kp, vp, bt, cl = decode_inputs(g, B, H, KVH, hd, bp, lens, bf)
-    pages = sum(-(-n // page) for n in lens)
-    nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + cl.numel() * 4
-              + 2 * pages * page * KVH * hd * 2)
-    flops = 4 * hd * H * sum(lens)
+    quant = kv_dtype in QUANT
+    q, kp, vp, bt, cl = decode_inputs(g, B, H, KVH, hd, bp, lens,
+                                      torch.float32 if quant else bf)
+    scales = {}
+    if quant:
+        kp, vp, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+        scales = dict(k_scale=ks, v_scale=vs)
+        q = q.to(bf)
+    kd = pa.gather_kv(kp, bt, scales.get("k_scale")).to(bf).transpose(1, 2) \
+        .contiguous()                                    # [B, KVH, S, hd]
+    vd = pa.gather_kv(vp, bt, scales.get("v_scale")).to(bf).transpose(1, 2) \
+        .contiguous()
     S = bp * page
-    kd = pa.gather_pages(kp, bt).transpose(1, 2).contiguous()  # [B,KVH,S,hd]
-    vd = pa.gather_pages(vp, bt).transpose(1, 2).contiguous()
     mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None])[
         :, None, None, :]
     q4 = q[:, :, None, :]
-    rows["paged_attention_decode"] = dict(
+    pages = sum(-(-n // page) for n in lens)
+    slot_bytes = hd + 4 if quant else 2 * hd
+    row = dict(
         ms=time_cuda(lambda: pa.paged_attention(q, kp, vp, bt, cl,
-                                                scale=scale)),
-        plain_ms=time_cuda(lambda: pa.paged_attention_plain(q, kp, vp, bt,
-                                                            cl, scale)),
+                                                scale=scale, **scales)),
+        plain_ms=time_cuda(lambda: pa.paged_attention_plain(
+            q, kp, vp, bt, cl, scale, scales.get("k_scale"),
+            scales.get("v_scale"))),
         library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
             q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
+        library="SDPA over K/V gathered"
+                + (" and dequantized" if quant else "") + " beforehand",
+        splits=pa.split_count(bp, B * KVH),
         shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
-              f"{lens[-1]} bf16",
-        bytes=nbytes, flops=flops, dtype=bf)
-
-    # K1a over long rows: 16 lanes of 1024-4096 slots (bp = 256, ~41k
-    # live slots, ~168 MB of pages); SDPA over the gathered K/V
-    Bl, bpl = 16, 256
-    lens_l = [1024 + (3072 * i) // (Bl - 1) for i in range(Bl)]
-    q, kp, vp, bt, cl = decode_inputs(g, Bl, H, KVH, hd, bpl, lens_l, bf)
-    pages = sum(-(-n // page) for n in lens_l)
-    Sl = bpl * page
-    kd = pa.gather_pages(kp, bt).transpose(1, 2).contiguous()
-    vd = pa.gather_pages(vp, bt).transpose(1, 2).contiguous()
-    mask = (torch.arange(Sl, device="cuda")[None, :] < cl[:, None])[
-        :, None, None, :]
-    q4 = q[:, :, None, :]
-    rows["paged_attention_decode_long"] = dict(
-        ms=time_cuda(lambda: pa.paged_attention(q, kp, vp, bt, cl,
-                                                scale=scale)),
-        plain_ms=time_cuda(lambda: pa.paged_attention_plain(q, kp, vp, bt,
-                                                            cl, scale)),
-        library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
-        library="SDPA over K/V gathered beforehand",
-        splits=pa.split_count(bpl, Bl * KVH),
-        shape=f"B={Bl} H={H} KVH={KVH} hd={hd} bp={bpl} lens={lens_l[0]}.."
-              f"{lens_l[-1]} bf16",
+              f"{lens[-1]} bf16 q, {kv_dtype} pool",
         bytes=(2 * q.numel() * 2 + bt.numel() * 4 + cl.numel() * 4
-               + 2 * pages * page * KVH * hd * 2),
-        flops=4 * hd * H * sum(lens_l), dtype=bf)
-    del q, kp, vp, bt, cl, kd, vd, mask, q4
-    torch.cuda.empty_cache()
+               + 2 * pages * page * KVH * slot_bytes),
+        flops=4 * hd * H * sum(lens), dtype=bf)
+    return row
 
-    # K1b at the batched phase's chunk shape: C = 16 over a 64-token prefix
-    C, prefix = 16, 64
-    q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(g, C, H, KVH, hd, bp,
-                                                   prefix, C, bf)
-    pages = -(-prefix // page)
-    nbytes = (2 * q.numel() * 2 + 2 * ok.numel() * 2 + bt.numel() * 4 + 8
-              + 2 * pages * page * KVH * hd * 2)
-    visible = sum(prefix + c + 1 for c in range(C))
-    flops = 4 * hd * H * visible
-    keys = torch.cat([pa.gather_pages(kp, bt)[:, :prefix], ok], 1)
-    vals = torch.cat([pa.gather_pages(vp, bt)[:, :prefix], ov], 1)
-    kd, vd = keys.transpose(1, 2).contiguous(), vals.transpose(1, 2) \
-        .contiguous()
+
+def time_prefill(pa, kvq, g, H, KVH, hd, bp, kv_dtype="bf16", C=16,
+                 prefix=64):
+    """K1b (bf16 pool) or K1c prefill (int8/fp8 pool): a chunk of C bf16
+    queries over a ``prefix``-token pooled prefix plus its own K/V; the
+    yardstick is SDPA with a causal mask over K/V gathered (and
+    dequantized) beforehand."""
+    import torch.nn.functional as F
+    bf, page = torch.bfloat16, 16
+    scale = 1.0 / math.sqrt(hd)
+    quant = kv_dtype in QUANT
+    q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
+        g, C, H, KVH, hd, bp, prefix, C, torch.float32 if quant else bf)
+    ks = vs = None
+    if quant:
+        kp, vp, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+        q, ok, ov = q.to(bf), ok.to(bf), ov.to(bf)
+    keys = torch.cat([pa.gather_kv(kp, bt, ks)[:, :prefix].to(bf), ok], 1)
+    vals = torch.cat([pa.gather_kv(vp, bt, vs)[:, :prefix].to(bf), ov], 1)
+    kd, vd = (t.transpose(1, 2).contiguous() for t in (keys, vals))
     pos = torch.arange(prefix + C, device="cuda")
-    cmask = (pos[None, :] <= prefix + torch.arange(C, device="cuda")[:, None])
+    cmask = pos[None, :] <= prefix + torch.arange(C, device="cuda")[:, None]
     qd = q.transpose(1, 2)
-    rows["paged_attention_prefill"] = dict(
+    pages = -(-prefix // page)
+    slot_bytes = hd + 4 if quant else 2 * hd
+    visible = sum(prefix + c + 1 for c in range(C))
+    return dict(
         ms=time_cuda(lambda: pa.paged_attention_prefill(
-            q, kp, vp, bt, pl, nv, ok, ov, scale=scale)),
+            q, kp, vp, bt, pl, nv, ok, ov, scale=scale, k_scale=ks,
+            v_scale=vs)),
         plain_ms=time_cuda(lambda: pa.paged_attention_prefill_plain(
-            q, kp, vp, bt, pl, nv, ok, ov, scale)),
+            q, kp, vp, bt, pl, nv, ok, ov, scale, None, ks, vs)),
         library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=cmask, scale=scale, enable_gqa=True)),
-        shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} bf16",
-        bytes=nbytes, flops=flops, dtype=bf)
+        library="SDPA, masked, over K/V gathered"
+                + (" and dequantized" if quant else "") + " beforehand",
+        shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} bf16 q, "
+              f"{kv_dtype} pool",
+        bytes=(2 * q.numel() * 2 + 2 * ok.numel() * 2 + bt.numel() * 4 + 8
+               + 2 * pages * page * KVH * slot_bytes),
+        flops=4 * hd * H * visible, dtype=bf)
 
-    # K1c at the same decode and chunk shapes over int8 and fp8 pools. The
-    # library yardstick is SDPA over K/V gathered and dequantized before
-    # the timed call (the gather and dequantization are not timed).
-    for kv_dtype in QUANT:
-        q, kp, vp, bt, cl = decode_inputs(g, B, H, KVH, hd, bp, lens,
-                                          torch.float32)
-        kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
-        q = q.to(bf)
-        pages = sum(-(-n // page) for n in lens)
-        nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + cl.numel() * 4
-                  + 2 * pages * page * KVH * (hd + 4))
-        kd = pa.gather_kv(kq, bt, ks).to(bf).transpose(1, 2).contiguous()
-        vd = pa.gather_kv(vq, bt, vs).to(bf).transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None])[
-            :, None, None, :]
-        q4 = q[:, :, None, :]
-        rows[f"paged_attention_decode_{kv_dtype}"] = dict(
-            ms=time_cuda(lambda: pa.paged_attention(
-                q, kq, vq, bt, cl, scale=scale, k_scale=ks, v_scale=vs)),
-            plain_ms=time_cuda(lambda: pa.paged_attention_plain(
-                q, kq, vq, bt, cl, scale, ks, vs)),
-            library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
-            library="SDPA over K/V gathered and dequantized beforehand",
-            shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
-                  f"{lens[-1]} bf16 q, {kv_dtype} pool",
-            bytes=nbytes, flops=4 * hd * H * sum(lens), dtype=bf)
 
-        q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
-            g, C, H, KVH, hd, bp, prefix, C, torch.float32)
-        kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
-        q, ok, ov = q.to(bf), ok.to(bf), ov.to(bf)
-        pages = -(-prefix // page)
-        nbytes = (2 * q.numel() * 2 + 2 * ok.numel() * 2 + bt.numel() * 4
-                  + 8 + 2 * pages * page * KVH * (hd + 4))
-        keys = torch.cat([pa.gather_kv(kq, bt, ks)[:, :prefix].to(bf), ok],
-                         1)
-        vals = torch.cat([pa.gather_kv(vq, bt, vs)[:, :prefix].to(bf), ov],
-                         1)
-        kd = keys.transpose(1, 2).contiguous()
-        vd = vals.transpose(1, 2).contiguous()
-        qd = q.transpose(1, 2)
-        rows[f"paged_attention_prefill_{kv_dtype}"] = dict(
-            ms=time_cuda(lambda: pa.paged_attention_prefill(
-                q, kq, vq, bt, pl, nv, ok, ov, scale=scale, k_scale=ks,
-                v_scale=vs)),
-            plain_ms=time_cuda(lambda: pa.paged_attention_prefill_plain(
-                q, kq, vq, bt, pl, nv, ok, ov, scale, None, ks, vs)),
-            library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=cmask, scale=scale, enable_gqa=True)),
-            library="SDPA over K/V gathered and dequantized beforehand",
-            shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} "
-                  f"bf16 q, {kv_dtype} pool",
-            bytes=nbytes, flops=4 * hd * H * visible, dtype=bf)
-
-    # K3 at the kernels phase's shape: B = 1, H = 32, S = 2048, causal bf16
-    Sf = 2048
-    qf, kf, vf = (torch.randn(1, H, Sf, hd, generator=g, device="cuda")
-                  .to(bf) for _ in range(3))
-    rows["flash_attention"] = dict(
+def time_flash(fa, g, H, hd, dtype, S=2048):
+    """K3, B = 1, causal, against SDPA with ``is_causal``."""
+    import torch.nn.functional as F
+    qf, kf, vf = (torch.randn(1, H, S, hd, generator=g, device="cuda")
+                  .to(dtype) for _ in range(3))
+    return dict(
         ms=time_cuda(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
         plain_ms=time_cuda(lambda: fa.flash_attention_plain(qf, kf, vf,
                                                             True)),
         library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
             qf, kf, vf, is_causal=True)),
         library="SDPA, is_causal",
-        shape=f"B=1 H={H} S={Sf} hd={hd} causal bf16",
-        bytes=4 * qf.numel() * 2, flops=4 * hd * H * Sf * (Sf + 1) // 2,
-        dtype=bf)
+        shape=f"B=1 H={H} S={S} hd={hd} causal {str(dtype)[6:]}",
+        bytes=4 * qf.numel() * qf.element_size(),
+        flops=4 * hd * H * S * (S + 1) // 2, dtype=dtype)
+
+
+def time_ssd(sd, g, N):
+    """K4 at B = 1, S = 2048, H = 80, P = 64, state N, chunk 256, f32.
+    Operations: C.B^T once per chunk (lower triangle), the intra product
+    over the causal half, the carry-in on every chunk but the first (its
+    state is zero), the state update everywhere."""
+    x, dt, A, Bm, Cm = ssd_inputs(g, 2048, False, N=N)
+    Bs, Ss, Hs, Ps = x.shape
+    ls = 256
+    nc, tri = Ss // ls, ls * (ls + 1) // 2
+    flops = (2 * N * tri * nc * Bs + 2 * Ps * tri * nc * Bs * Hs
+             + 2 * Ps * N * (Ss - ls) * Bs * Hs + 2 * Ps * N * Ss * Bs * Hs)
+    return dict(
+        ms=time_cuda(lambda: sd.ssd_scan(x, dt, A, Bm, Cm, chunk=ls)),
+        plain_ms=time_cuda(lambda: sd.ssd_scan_plain(x, dt, A, Bm, Cm),
+                           reps=5, warmup=1),
+        library_ms=None, library="none (no single call)",
+        launches_ms=device_split(lambda: sd.ssd_scan(x, dt, A, Bm, Cm,
+                                                     chunk=ls)),
+        shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={N} chunk={ls} f32",
+        bytes=4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
+                   + Bs * Hs * Ps * N),
+        flops=flops, dtype=torch.float32)
+
+
+def time_ssm_decode(smd, g, N):
+    """``ssm_decode`` over 16 lanes, H = 80, P = 64, state N, bf16
+    projection and conv state, f32 ssm state. Bytes: the ssm state and
+    the conv state read and written once, the projection slices, the
+    params and y; operations: per state element the decay, the input
+    term, their sum and the y product (5 flop), and the conv."""
+    bf = torch.bfloat16
+    params, ssm, conv = ssm_decode_inputs(g, bf, N=N)
+    xbc, dt = ssm_projection(g, bf, N=N)
+    Bd, Hd, Pd, Nd = ssm.shape
+    Wd, Cd = params[0].shape
+    return dict(
+        ms=time_cuda(lambda: smd.ssm_decode(conv, ssm, xbc, dt, *params)),
+        plain_ms=time_cuda(lambda: smd.ssm_decode_plain(conv, ssm, xbc, dt,
+                                                        *params)),
+        library_ms=None, library="none (no single call)",
+        launches_ms=device_split(lambda: smd.ssm_decode(conv, ssm, xbc, dt,
+                                                        *params)),
+        shape=f"B={Bd} H={Hd} P={Pd} N={Nd} C={Cd} W={Wd} bf16 "
+              f"projection and conv state, f32 ssm state",
+        bytes=(2 * ssm.numel() * 4 + 2 * conv.numel() * 2 + xbc.numel() * 2
+               + dt.numel() * 2 + (Wd + 1) * Cd * 2 + 3 * Hd * 4
+               + Bd * Hd * Pd * 4),
+        flops=5 * ssm.numel() + 2 * Wd * Bd * Cd, dtype=torch.float32)
+
+
+def phase_times(pa, ss, fa, sd, kvq, smd):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf = torch.bfloat16
+    rows = {}
+    # K1 at the serve phases' decode shape: 16 lanes over 80-block pool
+    # rows of 32 pages, lengths across the prompt + 128 tokens range;
+    # qwen3 (H 32, KVH 8, hd 128) and zamba2 (H = KVH = 32, hd 80)
+    B = 16
+    lens = [15 + (128 * i) // (B - 1) for i in range(B)]
+    for tag, H, KVH, hd in (("", 32, 8, 128), ("_hd80", 32, 32, 80)):
+        rows[f"paged_attention_decode{tag}"] = time_decode(
+            pa, kvq, g, B, H, KVH, hd, 32, lens)
+        if not tag:
+            # K1a over long rows: 16 lanes of 1024-4096 slots (bp = 256,
+            # ~41k live slots, ~168 MB of pages)
+            lens_l = [1024 + (3072 * i) // (B - 1) for i in range(B)]
+            rows["paged_attention_decode_long"] = time_decode(
+                pa, kvq, g, B, H, KVH, hd, 256, lens_l)
+            torch.cuda.empty_cache()
+        # K1b at the batched phase's chunk shape: C = 16 over a 64-token
+        # prefix; K1c at the same decode and chunk shapes over int8/fp8
+        rows[f"paged_attention_prefill{tag}"] = time_prefill(
+            pa, kvq, g, H, KVH, hd, 32)
+        for kv_dtype in QUANT:
+            rows[f"paged_attention_decode_{kv_dtype}{tag}"] = time_decode(
+                pa, kvq, g, B, H, KVH, hd, 32, lens, kv_dtype)
+            rows[f"paged_attention_prefill_{kv_dtype}{tag}"] = time_prefill(
+                pa, kvq, g, H, KVH, hd, 32, kv_dtype)
+    # K1a at granite-20b's shape: 48 query heads over one kv head, hd 128,
+    # the dense_archs phase's 8 lanes (prompt + 32 tokens)
+    lens8 = [15 + (32 * i) // 7 for i in range(8)]
+    rows["paged_attention_decode_g48"] = time_decode(pa, kvq, g, 8, 48, 1,
+                                                     128, 32, lens8)
+
+    # K3 at the kernels phase's shape: B = 1, H = 32, S = 2048, causal;
+    # qwen3's hd 128 in bf16, zamba2's hd 80 in bf16 and f32
+    rows["flash_attention"] = time_flash(fa, g, 32, 128, bf)
+    rows["flash_attention_hd80"] = time_flash(fa, g, 32, 80, bf)
+    rows["flash_attention_hd80_f32"] = time_flash(fa, g, 32, 80,
+                                                  torch.float32)
+    torch.cuda.empty_cache()
 
     # K2 at the decode batch: 16 lanes, D = 2560, bf16 hidden
     D, Hd = 2560, 512
@@ -1347,52 +1675,12 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
         bytes=h64.numel() * 2 + (w1.numel() + 2 * Hd + 1 + 64) * 4,
         flops=2 * 64 * D * Hd + 4 * 64 * Hd, dtype=torch.float32)
 
-    # K4 at forward_ssd's shape: B = 1, S = 2048, H = 80, P = 64, N = 128,
-    # chunk 256, f32. Operations: C.B^T once per chunk (lower triangle),
-    # the intra product over the causal half, the carry-in on every chunk
-    # but the first (its state is zero), the state update everywhere.
-    x, dt, A, Bm, Cm = ssd_inputs(g, 2048, False)
-    Bs, Ss, Hs, Ps = x.shape
-    Ns, ls = Bm.shape[-1], 256
-    nc, tri = Ss // ls, ls * (ls + 1) // 2
-    flops = (2 * Ns * tri * nc * Bs + 2 * Ps * tri * nc * Bs * Hs
-             + 2 * Ps * Ns * (Ss - ls) * Bs * Hs + 2 * Ps * Ns * Ss * Bs * Hs)
-    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
-                  + Bs * Hs * Ps * Ns)
-    rows["ssd_scan"] = dict(
-        ms=time_cuda(lambda: sd.ssd_scan(x, dt, A, Bm, Cm, chunk=ls)),
-        plain_ms=time_cuda(lambda: sd.ssd_scan_plain(x, dt, A, Bm, Cm),
-                           reps=5, warmup=1),
-        library_ms=None, library="none (no single call)",
-        launches_ms=device_split(lambda: sd.ssd_scan(x, dt, A, Bm, Cm,
-                                                     chunk=ls)),
-        shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={Ns} chunk={ls} f32",
-        bytes=nbytes, flops=flops, dtype=torch.float32)
-
-    # ssm_decode at serve_mamba2's decode batch: 16 lanes, H = 80, P = 64,
-    # N = 128, C = 5376, bf16 projection and conv state, f32 ssm state.
-    # Bytes: the ssm state and the conv state read and written once, the
-    # projection slices, the params and y; operations: per state element
-    # the decay, the input term, their sum and the y product (5 flop).
-    params, ssm, conv = ssm_decode_inputs(g, bf)
-    xbc, dt = ssm_projection(g, bf)
-    Bd, Hd_, Pd, Nd = ssm.shape
-    Wd, Cd = params[0].shape
-    nbytes = (2 * ssm.numel() * 4 + 2 * conv.numel() * 2 + xbc.numel() * 2
-              + dt.numel() * 2 + (Wd + 1) * Cd * 2 + 3 * Hd_ * 4
-              + Bd * Hd_ * Pd * 4)
-    rows["ssm_decode"] = dict(
-        ms=time_cuda(lambda: smd.ssm_decode(conv, ssm, xbc, dt, *params)),
-        plain_ms=time_cuda(lambda: smd.ssm_decode_plain(conv, ssm, xbc, dt,
-                                                        *params)),
-        library_ms=None, library="none (no single call)",
-        launches_ms=device_split(lambda: smd.ssm_decode(conv, ssm, xbc, dt,
-                                                        *params)),
-        shape=f"B={Bd} H={Hd_} P={Pd} N={Nd} C={Cd} W={Wd} bf16 "
-              f"projection and conv state, f32 ssm state",
-        bytes=nbytes, flops=5 * ssm.numel() + 2 * Wd * Bd * Cd,
-        dtype=torch.float32)
-    del params, ssm, conv, xbc, dt
+    # K4 and ssm_decode at mamba2's state (N = 128) and zamba2's (N = 64):
+    # the forward phases' scan and the serve phases' decode batch
+    rows["ssd_scan"] = time_ssd(sd, g, 128)
+    rows["ssd_scan_zamba2"] = time_ssd(sd, g, 64)
+    rows["ssm_decode"] = time_ssm_decode(smd, g, 128)
+    rows["ssm_decode_zamba2"] = time_ssm_decode(smd, g, 64)
 
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
@@ -1400,6 +1688,68 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
         r["bound_share"] = r["bound_ms"] / r["ms"]
     emit("times", **rows)
     return rows
+
+
+DENSE_ARCHS = ("qwen3-1.7b", "starcoder2-3b", "phi4-mini-3.8b",
+               "granite-20b")
+
+
+def phase_dense_archs(rt, ops):
+    """The four dense GQA archs beside qwen3-4b-thinking at full width
+    (random seeded weights), one at a time, each freed before the next
+    (granite-20b, 28 B params and 56 GB in bf16, last): a graphed STEP
+    serve of 1 request x 8 traces, greedy, 32 new tokens, kernels on,
+    against the eager kernel engine (identical tokens, statuses, prunes,
+    bitwise step scores); then the kernel engine against the dense
+    engine at the arch's smoke config, as ``reference`` does for qwen3."""
+    E = rt["engine"]
+    tok = rt["tokenizer"].get_tokenizer()
+    problem = rt["evaluate"].make_problems(1, seed=SEED + 8)[0]
+    prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
+    ecfg = E.EngineConfig(max_batch=8, num_blocks=80, capacity=512,
+                          max_new_tokens=32, sampling=greedy(rt, 32),
+                          use_kernel="auto", decode_horizon=4,
+                          prefix_cache=True, faults=None, kv_dtype="bf16")
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg, params, scorer, n_params, init_s = full_model(rt, arch)
+
+        def make_engine(eager, cfg=cfg, params=params, scorer=scorer):
+            engine = tick_counting(E)(params, cfg, ecfg,
+                                      rt["pruning"].make_policy("step"),
+                                      scorer_params=scorer,
+                                      _eager_decode=eager)
+            check(engine.use_kernel and engine.fused_scorer,
+                  "engine not on the kernel path")
+            return engine
+
+        def run(engine):
+            res = engine.serve(prompt, 8)
+            check_result(res, engine)
+            return [res]
+
+        first, report = graphed_vs_eager(ops, make_engine, run,
+                                         f"dense_archs {arch}", calls=1)
+        launches = first["launches"]
+        iters = launches["step_score"]
+        check(iters > 0 and launches["paged_attention_decode"]
+              == iters * cfg.num_layers,
+              f"{arch}: K1a did not run once per layer and iteration")
+        out[arch] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+            "params": n_params, "init_s": init_s,
+            "total_tokens": first["total_tokens"],
+            "num_pruned": first["results"][0].num_pruned,
+            "decode_iterations": iters, "launches": launches,
+            "max_memory_allocated": first["max_memory_allocated"],
+            "graph": report}
+        del params, scorer, first, make_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_smoke_reference(rt, arch=arch)
+    emit("dense_archs", **out)
+    return out
 
 
 def phase_step(rt, cfg, params, name="step"):
@@ -1499,13 +1849,28 @@ def main() -> int:
     # peaks at 74 GB of the 80)
     del params, scorer
     torch.cuda.empty_cache()
-    mcfg, mparams, mscorer, n_params, init_s = full_model(rt, "mamba2-2.7b")
-    emit("model", name=mcfg.name, layers=mcfg.num_layers,
-         d_model=mcfg.d_model, params=n_params, init_s=init_s)
-    serve_ssm = phase_serve_mamba2(rt, ops, mcfg, mparams, mscorer)
-    phase_smoke_reference(rt, arch="mamba2-2.7b")
-    forward_ssd = phase_forward_ssd(rt, ops, mcfg, mparams)
-    phase_step(rt, mcfg, mparams, "step_mamba2")
+    recurrent = {}
+    for arch, tag in (("mamba2-2.7b", "mamba2"), ("zamba2-2.7b", "zamba2")):
+        mcfg, mparams, mscorer, n_params, init_s = full_model(rt, arch)
+        emit("model", name=mcfg.name, layers=mcfg.num_layers,
+             d_model=mcfg.d_model, params=n_params, init_s=init_s)
+        serve_run = phase_serve_recurrent(rt, ops, mcfg, mparams, mscorer,
+                                          f"serve_{tag}")
+        phase_smoke_reference(rt, arch=arch)
+        if tag == "zamba2":
+            phase_kernel_vs_dense(rt, ops, mcfg, mparams, mscorer,
+                                  "kernel_vs_dense_zamba2")
+        forward_run = phase_forward_recurrent(
+            rt, ops, mcfg, mparams,
+            "forward_ssd" if tag == "mamba2" else "forward_zamba2")
+        phase_step(rt, mcfg, mparams, f"step_{tag}")
+        recurrent[tag] = (serve_run, forward_run)
+        del mparams, mscorer
+        gc.collect()
+        torch.cuda.empty_cache()
+    serve_ssm, forward_ssd = recurrent["mamba2"]
+    serve_hyb, forward_hyb = recurrent["zamba2"]
+    dense = phase_dense_archs(rt, ops)
 
     # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"
@@ -1524,7 +1889,8 @@ def main() -> int:
                        "score_bfloat16",
                        serve["launches"]["step_score"]
                        + batched["launches"]["step_score"]
-                       + serve_ssm["launches"]["step_score"]),
+                       + serve_ssm["launches"]["step_score"]
+                       + serve_hyb["launches"]["step_score"]),
         "flash_attention": (src + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:38",
                             "flash_bfloat16",
@@ -1538,6 +1904,26 @@ def main() -> int:
                        "none (XLA fusion of src/repro/models/layers.py:1120)",
                        "ssm_decode_bfloat16",
                        serve_ssm["launches"]["ssm_decode"]),
+        # the instances of this slice's paths: zamba2 (hd 80, N = 64) and
+        # granite-20b (48 query heads over one kv head)
+        "paged_attention_decode_hd80": (
+            *paged, "decode_hd80_bfloat16",
+            serve_hyb["launches"]["paged_attention_decode"]),
+        "paged_attention_decode_g48": (
+            *paged, "decode_g48_bfloat16",
+            dense["granite-20b"]["launches"]["paged_attention_decode"]),
+        "flash_attention_hd80": (src + "flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:38",
+                                 "flash_hd80_bfloat16",
+                                 forward_hyb["launches"]["flash_attention"]),
+        "ssd_scan_zamba2": (src + "ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:40",
+                            "ssd_scan_zamba2",
+                            forward_hyb["launches"]["ssd_scan"]),
+        "ssm_decode_zamba2": (
+            src + "ssm_decode.cu",
+            "none (XLA fusion of src/repro/models/layers.py:1120)",
+            "ssm_decode_zamba2_bfloat16", serve_hyb["launches"]["ssm_decode"]),
     }
     for kv_dtype, run in quant.items():
         for face in ("decode", "prefill"):

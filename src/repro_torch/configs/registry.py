@@ -18,12 +18,19 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen3-4b-thinking": "repro_torch.configs.qwen3_4b_thinking",
     # The attention-free SSD stack: recurrent per-slot state, the SSD scan.
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    # The hybrid: Mamba2 groups with one shared attention block (hd 80).
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    # Dense GQA archs on the qwen3 path: qk-norm or not, tied or not,
+    # granite-20b's 48 query heads over one kv head.
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
 }
 
 # Archs of the JAX package not ported yet (ROADMAP A9: the arch zoo).
 _NOT_PORTED = (
-    "granite-20b", "internvl2-2b", "qwen3-1.7b", "mixtral-8x7b",
-    "zamba2-2.7b", "deepseek-v2-236b", "phi4-mini-3.8b", "starcoder2-3b",
+    "internvl2-2b", "mixtral-8x7b", "deepseek-v2-236b",
     "seamless-m4t-large-v2",
 )
 

@@ -3,9 +3,13 @@
 //
 // One warp owns MT blocks of 16 query rows (MT = 2 in K3, as in
 // FlashAttention-2: every K or V fragment it reads serves both blocks).
-// Q and a tile of BK = 64 keys sit in shared memory as [rows, HD] bf16 rows
-// whose 16-byte chunks are XOR-swizzled by row % 8, so the 8 row
-// addresses of an ldmatrix fall in 8 different bank groups. Per tile:
+// Q and a tile of BK = 64 keys sit in shared memory as bf16 rows of HD
+// (any multiple of 16), laid out so that the 8 row addresses of an
+// ldmatrix fall in 8 different 16-byte bank groups: a row of a multiple
+// of 8 chunks (hd 64, 128) is stored densely with its chunks
+// XOR-swizzled by row % 8 inside each aligned group of 8; any other row
+// (hd 32, 80, 96) is padded by one chunk, to an odd number of chunks,
+// so that consecutive rows start 16 bytes apart modulo 128. Per tile:
 //
 //   qk()             S = Q K^T with mma.sync.m16n8k16 (bf16 in, f32 out);
 //   online_softmax() the row max and row sum of the S fragments, reduced
@@ -38,10 +42,35 @@ constexpr int BK = 64;                          // keys per tile
 constexpr float NEG_INF = -1e30f;               // the masked-score fill
 constexpr float LOG2E = 1.4426950408889634f;
 
-// element offset of (row, 16-byte chunk) in a swizzled [rows, HD] tile
+// elements of one shared-memory row of a [rows, HD] tile
+template <int HD>
+__host__ __device__ constexpr int row_elems() {
+  static_assert(HD % 16 == 0, "the tile's k-steps are 16 wide");
+  return (HD / 8) % 8 == 0 ? HD : HD + 8;
+}
+
+// element offset of (row, 16-byte chunk) in a [rows, HD] tile; the chunk
+// stays inside its row for every HD the tile takes
 template <int HD>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 3);
+  if constexpr ((HD / 8) % 8 == 0)
+    return row * HD + ((chunk ^ (row & 7)) << 3);
+  else
+    return row * row_elems<HD>() + (chunk << 3);
+}
+
+// The f32 paths' thread map (not the tensor-core tile): accumulator i of
+// thread tid holds element tid + i * NT of a [rows, HD] output. Its (row,
+// hd column) starts at (tid / HD, tid % HD) and steps from one i to the
+// next here, without a division; where HD divides NT the column stays.
+template <int HD, int NT>
+__device__ __forceinline__ void next_elem(int& row, int& col) {
+  row += NT / HD;
+  col += NT % HD;
+  if (NT % HD != 0 && col >= HD) {
+    col -= HD;
+    ++row;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

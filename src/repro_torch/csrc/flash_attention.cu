@@ -39,6 +39,10 @@
 //   l summed in f32 from the unrounded p; P is rounded to bf16 before
 //   P.V, as the reference mha_ref rounds probs to v's dtype.
 //
+// Head dims: 32, 64, 80 and 128 (the tile takes any multiple of 16; its
+// shared-memory rows are padded where hd / 8 is not a multiple of 8). hd 80
+// is five k-steps of 16 on the same mma.sync path.
+//
 // f32 (the test path): f32 on the CUDA cores, because TF32 would miss the
 // 1e-4 f32 tolerance.
 //   grid (B*H, ceil(S / 64)), 256 threads; per 64-key tile K and V are
@@ -55,6 +59,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using tile::BK;
+using tile::next_elem;
 using tile::NEG_INF;
 
 // ---------------------------------------------------------------------------
@@ -69,7 +74,7 @@ constexpr int STAGES = 2;                   // K/V tiles in the ring
 
 template <int HD>
 constexpr size_t tc_smem() {   // Q tile + the ring of K and V tiles
-  return sizeof(bf16) * (TC_ROWS * HD + 2 * STAGES * BK * HD);
+  return sizeof(bf16) * tile::row_elems<HD>() * (TC_ROWS + 2 * STAGES * BK);
 }
 
 // rows [row0, row0 + R) of one head's [S, HD] matrix -> swizzled tile
@@ -90,10 +95,11 @@ __global__ void __launch_bounds__(TC_NT, 2)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     int S, int causal, int window, float scale_log2) {
+  constexpr int RS = tile::row_elems<HD>();   // a shared-memory row
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [TC_ROWS, HD]
-  bf16* k_s = q_s + TC_ROWS * HD;                   // [STAGES][BK, HD]
-  bf16* v_s = k_s + STAGES * BK * HD;               // [STAGES][BK, HD]
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [TC_ROWS, RS]
+  bf16* k_s = q_s + TC_ROWS * RS;                   // [STAGES][BK, RS]
+  bf16* v_s = k_s + STAGES * BK * RS;               // [STAGES][BK, RS]
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // longest first
@@ -126,8 +132,8 @@ __global__ void __launch_bounds__(TC_NT, 2)
   auto issue = [&](int kt) {
     if (kt < kt_end) {
       const int st = (kt - kt_begin) % STAGES;
-      load_rows<HD, BK>(k_s + st * BK * HD, k + head, kt * BK, S);
-      load_rows<HD, BK>(v_s + st * BK * HD, v + head, kt * BK, S);
+      load_rows<HD, BK>(k_s + st * BK * RS, k + head, kt * BK, S);
+      load_rows<HD, BK>(v_s + st * BK * RS, v + head, kt * BK, S);
     }
     tile::cp_async_commit();
   };
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(TC_NT, 2)
         (window >= 0 && k0 + BK - 1 <= wq0 - window))
       continue;
     float s[MT][BK / 8][4];
-    tile::qk<HD, MT>(s, q_s, wr0, k_s + st * BK * HD);
+    tile::qk<HD, MT>(s, q_s, wr0, k_s + st * BK * RS);
     // only the edge tiles (the diagonal, the window's edge, the end of a
     // ragged S) evaluate the mask per score
     const bool full = k0 + BK <= S && (!causal || k0 + BK - 1 <= wq0) &&
@@ -171,7 +177,7 @@ __global__ void __launch_bounds__(TC_NT, 2)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
       tile::online_softmax<HD>(s[mt], o[mt], m[mt], l[mt], scale_log2);
-    tile::pv<HD, MT>(o, s, v_s + st * BK * HD);
+    tile::pv<HD, MT>(o, s, v_s + st * BK * RS);
   }
 
 #pragma unroll
@@ -228,7 +234,6 @@ __global__ void __launch_bounds__(F_NT)
   float acc[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  const int col = tid % HD;
   __syncthreads();
 
   const int q_last = q0 + nrows - 1;
@@ -288,26 +293,37 @@ __global__ void __launch_bounds__(F_NT)
       m_s[tid] = m_new;
     }
     __syncthreads();
-    // acc = acc * alpha + P @ V; each V element is read once per thread
+    // acc = acc * alpha + P @ V; where HD divides the thread count each
+    // V element is read once per thread
+    {
+      int r = tid / HD, c = tid % HD;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] *= al_s[tid / HD + i * (F_NT / HD)];
+      for (int i = 0; i < PER; ++i) {
+        acc[i] *= al_s[r];
+        next_elem<HD, F_NT>(r, c);
+      }
+    }
     for (int j = 0; j < n; ++j) {
-      const float vj = v_s[j * HD + col];
+      int r = tid / HD, c = tid % HD;
+      const float vj = v_s[j * HD + c];   // the column of every i
 #pragma unroll
-      for (int i = 0; i < PER; ++i)
-        acc[i] += s_s[(tid / HD + i * (F_NT / HD)) * BK + j] * vj;
+      for (int i = 0; i < PER; ++i) {
+        acc[i] += s_s[r * BK + j] * (F_NT % HD == 0 ? vj : v_s[j * HD + c]);
+        next_elem<HD, F_NT>(r, c);
+      }
     }
     __syncthreads();
   }
 
   // finalize: rows with no visible key emit zeros
+  int r = tid / HD, c = tid % HD;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    const int r = tid / HD + i * (F_NT / HD);
     if (r < nrows) {
       const float l = l_s[r];
-      out[head + (size_t)(q0 + r) * HD + col] = acc[i] / (l == 0.f ? 1.f : l);
+      out[head + (size_t)(q0 + r) * HD + c] = acc[i] / (l == 0.f ? 1.f : l);
     }
+    next_elem<HD, F_NT>(r, c);
   }
 }
 
@@ -347,10 +363,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int hd, int bf16, int causal,
                                      int window, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64)
-    return launch_hd<64>(q, k, v, out, BH, S, bf16, causal, window, scale, st);
-  if (hd == 128)
-    return launch_hd<128>(q, k, v, out, BH, S, bf16, causal, window, scale,
-                          st);
+  switch (hd) {
+    case 32:
+      return launch_hd<32>(q, k, v, out, BH, S, bf16, causal, window, scale,
+                           st);
+    case 64:
+      return launch_hd<64>(q, k, v, out, BH, S, bf16, causal, window, scale,
+                           st);
+    case 80:
+      return launch_hd<80>(q, k, v, out, BH, S, bf16, causal, window, scale,
+                           st);
+    case 128:
+      return launch_hd<128>(q, k, v, out, BH, S, bf16, causal, window, scale,
+                            st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,11 @@
 //   kv head (NG of them per CTA) stay in registers as f32. The warps of a
 //   CTA take interleaved pages of the lane; a warp reads a slot row with
 //   16-byte loads (a 256-byte bf16 row is half a warp, a 128-byte int8/fp8
-//   row a quarter) in rounds of a 16-slot page of K and V (at most 8 loads
+//   row a quarter). A row takes a power-of-two group of lanes, so that
+//   the shuffle reductions stay inside it: where hd / (values per load) is
+//   no power of two (hd 80: 10 bf16 loads) the group is padded (16 lanes)
+//   and its last lanes load nothing and hold zeros. It reads rounds of a
+//   16-slot page of K and V (at most 8 loads
 //   of each per lane), issues the next round's loads (and reads the next
 //   page's block id) before it computes the current one, computes the
 //   per-slot scores with a shuffle reduction over the lanes of the row and
@@ -56,13 +60,17 @@
 //   and the chunk's own). P is rounded to bf16 before P.V.
 //
 // Prefill with f32 queries or an f32 pool: on the CUDA cores, f32
-//   throughout (the tensor cores would round the f32 operands). grid (B, KVH, ceil(C*G / 16)), 128 threads; per live page
+//   throughout (the tensor cores would round the f32 operands). grid (B,
+//   KVH, ceil(C*G / 16)), 128 threads; per live page
 //   the [page, hd] K and V tiles are staged in shared memory as f32 (times
 //   their slot's scale for a quantized pool), one thread per (row, key)
 //   computes a score, one thread per row runs the online softmax.
 //
 // Every face: rows with no visible key emit zeros (acc / (l == 0 ? 1 :
-// l)), the JAX kernel's safe_l convention.
+// l)), the JAX kernel's safe_l convention. Head dims: 32, 64, 80 and 128
+// (the tensor-core tile takes any multiple of 16; the int8/fp8 rows of
+// hd 80 are five 16-byte chunks, so their tile copies run in ragged
+// rounds).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -145,6 +153,15 @@ struct Args {
 constexpr int D_WARPS = 4;
 constexpr int D_NT = 32 * D_WARPS;
 
+// Lanes per slot row at decode: hd / (pool values per 16-byte load),
+// rounded up to a power of two.
+template <int HD, typename KT>
+__host__ __device__ constexpr int row_lanes() {
+  constexpr int n = HD / (16 / (int)sizeof(KT));
+  static_assert(n * (16 / (int)sizeof(KT)) == HD && n <= 32, "row split");
+  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
+}
+
 // One round of a lane's loads: U slot rows of K and of V (16 bytes each)
 // and, for an int8/fp8 pool, their scales.
 template <int U>
@@ -155,12 +172,13 @@ struct Chunk {
 };
 
 // Load slots s0 + u*RPL + sub (u < U) of the page at slot position pos0,
-// held in pool block `block`; slots past the page or the length are zero.
+// held in pool block `block`; slots past the page or the length, and the
+// columns of a padding lane (e0 >= HD), are zero.
 template <int HD, int U, typename KT>
 __device__ __forceinline__ void load_chunk(const Args& a, Chunk<U>& c,
                                            size_t block, int pos0, int s0,
                                            int len, int h, int sub, int e0) {
-  constexpr int RPL = 32 / (HD / (16 / (int)sizeof(KT)));
+  constexpr int RPL = 32 / row_lanes<HD, KT>();
   const KT* kp = (const KT*)a.k_pool;
   const KT* vp = (const KT*)a.v_pool;
 #pragma unroll
@@ -171,9 +189,11 @@ __device__ __forceinline__ void load_chunk(const Args& a, Chunk<U>& c,
     c.k[u] = c.v[u] = make_uint4(0, 0, 0, 0);
     c.ks[u] = c.vs[u] = 1.f;
     if (c.ok[u]) {
-      c.k[u] = __ldg(reinterpret_cast<const uint4*>(kp + slot * HD + e0));
-      c.v[u] = __ldg(reinterpret_cast<const uint4*>(vp + slot * HD + e0));
-      if (sizeof(KT) == 1) {
+      if (e0 < HD) {
+        c.k[u] = __ldg(reinterpret_cast<const uint4*>(kp + slot * HD + e0));
+        c.v[u] = __ldg(reinterpret_cast<const uint4*>(vp + slot * HD + e0));
+      }
+      if (sizeof(KT) == 1) {   // every lane of the row scales its score
         c.ks[u] = __ldg(a.k_scale + slot);
         c.vs[u] = __ldg(a.v_scale + slot);
       }
@@ -184,9 +204,8 @@ __device__ __forceinline__ void load_chunk(const Args& a, Chunk<U>& c,
 template <int HD, int NG, typename QT, typename KT>
 __global__ void __launch_bounds__(D_NT) decode_kernel(Args a) {
   constexpr int E = 16 / (int)sizeof(KT);   // pool values per 16-byte load
-  constexpr int LPR = HD / E;               // lanes per slot row
+  constexpr int LPR = row_lanes<HD, KT>();  // lanes per slot row
   constexpr int RPL = 32 / LPR;             // slot rows per warp-wide load
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
   // slot rows per lane per round: a 16-slot page of K and V (at most 8
   // loads of each); the next round's loads fly while this one computes
   constexpr int U = 16 / RPL < 1 ? 1 : 16 / RPL > 8 ? 8 : 16 / RPL;
@@ -196,7 +215,7 @@ __global__ void __launch_bounds__(D_NT) decode_kernel(Args a) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / LPR;            // which slot row of a load
-  const int e0 = (lane % LPR) * E;       // first hd column of this lane
+  const int e0 = (lane % LPR) * E;       // first hd column (>= HD: padding)
   const int bh = blockIdx.x, b = bh / a.KVH, h = bh % a.KVH;
   const int split = blockIdx.y, row0 = blockIdx.z * NG;
   const int pps = (a.bp + a.splits - 1) / a.splits;   // pages per split
@@ -216,7 +235,7 @@ __global__ void __launch_bounds__(D_NT) decode_kernel(Args a) {
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     const QT* qr = (const QT*)a.q + ((size_t)bh * a.CG + row0 + g) * HD + e0;
-    const bool ok = row0 + g < a.CG;
+    const bool ok = row0 + g < a.CG && e0 < HD;
 #pragma unroll
     for (int i = 0; i < E; ++i) q[g][i] = ok ? to_f32(qr[i]) : 0.f;
   }
@@ -309,7 +328,7 @@ __global__ void __launch_bounds__(D_NT) decode_kernel(Args a) {
       for (int off = LPR; off < 32; off <<= 1)
         acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
     }
-    if (sub == 0) {
+    if (sub == 0 && e0 < HD) {
 #pragma unroll
       for (int i = 0; i < E; ++i) s_o[warp][g][e0 + i] = acc[g][i];
     }
@@ -385,8 +404,8 @@ using tile::BK;
 // stages of raw K and V codes
 template <int HD, typename KT>
 constexpr size_t prefill_tc_smem() {
-  return sizeof(bf16) * (P_ROWS * HD + 4 * BK * HD) + sizeof(float) * 4 * BK +
-         (sizeof(KT) == 1 ? 4 * BK * HD : 0);
+  return sizeof(bf16) * tile::row_elems<HD>() * (P_ROWS + 4 * BK) +
+         sizeof(float) * 4 * BK + (sizeof(KT) == 1 ? 4 * BK * HD : 0);
 }
 
 // 16 pool codes -> 16 bf16 values (exact for int8 and e4m3)
@@ -418,6 +437,14 @@ __device__ __forceinline__ size_t pool_row(const Args& a, int b, int h,
   return ((block * a.page + slot % a.page) * a.KVH + h) * HD;
 }
 
+// Copies of a tile of BK keys, CPR of 16 bytes per key: N rounds of the
+// CTA's threads, the last one ragged where BK * CPR is no multiple of P_NT
+// (int8/fp8 codes of hd 80).
+template <int CPR>
+__host__ __device__ constexpr int copy_rounds() {
+  return (BK * CPR + P_NT - 1) / P_NT;
+}
+
 // Key j of a tile: own key t0 + j of the chunk, or pool slot t0 + j; its
 // element offset in own_k/own_v or in the pools (0 past `limit`). Each
 // thread reads every block-table entry it needs before it issues a copy,
@@ -430,7 +457,7 @@ __device__ __forceinline__ void key_offsets(const Args& a, int b, int h,
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int j = (threadIdx.x + n * P_NT) / CPR;
-    valid[n] = t0 + j < limit;
+    valid[n] = j < BK && t0 + j < limit;
     off[n] = 0;
     if (valid[n])
       off[n] = own ? (((size_t)b * a.C + t0 + j) * a.KVH + h) * HD
@@ -444,7 +471,8 @@ template <int HD>
 __device__ __forceinline__ void stage_rows(const Args& a, int b, int h,
                                            bool own, int t0, int limit,
                                            bf16* k_s, bf16* v_s) {
-  constexpr int CPR = HD / 8, N = BK * CPR / P_NT;
+  constexpr int CPR = HD / 8, N = copy_rounds<CPR>();
+  static_assert(BK * CPR % P_NT == 0, "whole rounds of bf16 copies");
   const bf16* kb = (const bf16*)(own ? a.own_k : a.k_pool);
   const bf16* vb = (const bf16*)(own ? a.own_v : a.v_pool);
   size_t off[N];
@@ -469,7 +497,7 @@ __device__ __forceinline__ void stage_codes(const Args& a, int b, int h,
                                             int t0, int limit,
                                             uint8_t* raw_k, uint8_t* raw_v,
                                             float* ks_s, float* vs_s) {
-  constexpr int CPR = HD / 16, N = BK * CPR / P_NT;
+  constexpr int CPR = HD / 16, N = copy_rounds<CPR>();
   const uint8_t* kp = (const uint8_t*)a.k_pool;
   const uint8_t* vp = (const uint8_t*)a.v_pool;
   size_t off[N];
@@ -478,6 +506,7 @@ __device__ __forceinline__ void stage_codes(const Args& a, int b, int h,
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int i = threadIdx.x + n * P_NT, c = i % CPR;
+    if (i >= BK * CPR) break;   // the ragged last round
     tile::cp_async16(raw_k + i * 16, kp + off[n] + c * 16, valid[n]);
     tile::cp_async16(raw_v + i * 16, vp + off[n] + c * 16, valid[n]);
   }
@@ -496,10 +525,11 @@ template <int HD, typename KT>
 __device__ __forceinline__ void convert_codes(const uint8_t* raw_k,
                                               const uint8_t* raw_v,
                                               bf16* k_s, bf16* v_s) {
-  constexpr int CPR = HD / 16, N = BK * CPR / P_NT;
+  constexpr int CPR = HD / 16, N = copy_rounds<CPR>();
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int i = threadIdx.x + n * P_NT, j = i / CPR, c = i % CPR;
+    if (i >= BK * CPR) break;   // the ragged last round
     uint4 lo, hi;
     codes_to_bf16<KT>(*reinterpret_cast<const uint4*>(raw_k + i * 16), lo,
                       hi);
@@ -534,11 +564,12 @@ __device__ __forceinline__ void stage_tile(const Args& a, int b, int h,
 
 template <int HD, typename KT>
 __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
+  constexpr int RS = tile::row_elems<HD>();   // a shared-memory row
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [P_ROWS, HD]
-  bf16* k_s = q_s + P_ROWS * HD;                    // [2][BK, HD]
-  bf16* v_s = k_s + 2 * BK * HD;                    // [2][BK, HD]
-  float* ks_s = reinterpret_cast<float*>(v_s + 2 * BK * HD);   // [2][BK]
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [P_ROWS, RS]
+  bf16* k_s = q_s + P_ROWS * RS;                    // [2][BK, RS]
+  bf16* v_s = k_s + 2 * BK * RS;                    // [2][BK, RS]
+  float* ks_s = reinterpret_cast<float*>(v_s + 2 * BK * RS);   // [2][BK]
   float* vs_s = ks_s + 2 * BK;                                 // [2][BK]
   uint8_t* raw = reinterpret_cast<uint8_t*>(vs_s + 2 * BK);  // [2][2][BK*HD]
 
@@ -584,7 +615,7 @@ __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
     const int t0 = own ? (t - n_pool) * BK : (pt_begin + t) * BK;
     const int st = t & 1;
     stage_tile<HD, KT>(a, b, h, own, t0, own ? own_limit : plen,
-                       k_s + st * BK * HD, v_s + st * BK * HD,
+                       k_s + st * BK * RS, v_s + st * BK * RS,
                        raw + 2 * st * BK * HD, raw + (2 * st + 1) * BK * HD,
                        ks_s + st * BK, vs_s + st * BK);
     tile::cp_async_commit();
@@ -600,7 +631,7 @@ __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
       if (!own) {
         convert_codes<HD, KT>(raw + 2 * st * BK * HD,
                               raw + (2 * st + 1) * BK * HD,
-                              k_s + st * BK * HD, v_s + st * BK * HD);
+                              k_s + st * BK * RS, v_s + st * BK * RS);
         __syncthreads();
       }
     }
@@ -608,7 +639,7 @@ __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
     const float* ksc = ks_s + st * BK;
     const float* vsc = vs_s + st * BK;
     float s[1][BK / 8][4];
-    tile::qk<HD, 1>(s, q_s, warp * 16, k_s + st * BK * HD);
+    tile::qk<HD, 1>(s, q_s, warp * 16, k_s + st * BK * RS);
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
@@ -639,7 +670,7 @@ __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
         s[0][n][3] *= vsc[j + 1];
       }
     }
-    tile::pv<HD, 1>(o, s, v_s + st * BK * HD);
+    tile::pv<HD, 1>(o, s, v_s + st * BK * RS);
     if (t + 2 < n_tiles) {
       __syncthreads();   // every warp is done with this buffer
       stage(t + 2);
@@ -714,15 +745,15 @@ __device__ __forceinline__ void fold_tile(
     m_s[tid] = m_new;
   }
   __syncthreads();
-  // acc = acc * alpha + P @ V, one hd column per thread
-  const int col = tid % HD;
+  // acc = acc * alpha + P @ V, one (row, hd column) per accumulator
+  int r = tid / HD, col = tid % HD;
 #pragma unroll
   for (int i = 0; i < F_ROWS * HD / F_NT; ++i) {
-    const int r = tid / HD + i * (F_NT / HD);
     const float* prow = s_s + r * a.page;
     float o = 0.f;
     for (int j = 0; j < n; ++j) o += prow[j] * v_s[j * HD + col];
     acc[i] = acc[i] * al_s[r] + o;
+    tile::next_elem<HD, F_NT>(r, col);
   }
   __syncthreads();
 }
@@ -813,15 +844,15 @@ __global__ void __launch_bounds__(F_NT) prefill_f32_kernel(Args a) {
   }
 
   // ---- finalize: rows with no visible key emit zeros -------------------
-  const int col = tid % HD;
+  int r = tid / HD, col = tid % HD;
 #pragma unroll
   for (int i = 0; i < F_ROWS * HD / F_NT; ++i) {
-    const int r = tid / HD + i * (F_NT / HD);
     if (r < nrows) {
       const float l = l_s[r];
       store((QT*)a.out + q_row<HD>(a, b, h, r0 + r) + col,
             acc[i] / (l == 0.f ? 1.f : l));
     }
+    tile::next_elem<HD, F_NT>(r, col);
   }
 }
 
@@ -920,7 +951,11 @@ extern "C" int repro_paged_attention(
          (const float*)v_scale, out, (float*)part_o, (float*)part_ml, KVH,
          CG, C, G, bp, page, scale, window, splits};
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64) return dispatch_dtypes<64>(a, B, q_bf16, kv_kind, st);
-  if (hd == 128) return dispatch_dtypes<128>(a, B, q_bf16, kv_kind, st);
+  switch (hd) {
+    case 32: return dispatch_dtypes<32>(a, B, q_bf16, kv_kind, st);
+    case 64: return dispatch_dtypes<64>(a, B, q_bf16, kv_kind, st);
+    case 80: return dispatch_dtypes<80>(a, B, q_bf16, kv_kind, st);
+    case 128: return dispatch_dtypes<128>(a, B, q_bf16, kv_kind, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

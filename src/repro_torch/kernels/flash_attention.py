@@ -32,6 +32,7 @@ from repro_torch.kernels.paged_attention import masked_softmax_pv
 
 LAUNCHES = {"flash": 0}
 BLOCK = 128   # the TPU kernel's default q/kv block: S must tile by it
+HEAD_DIMS = (32, 64, 80, 128)   # the head dims the kernel is built for
 _lib = None
 
 
@@ -83,9 +84,9 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("flash_attention kernel: q, k, v must share "
                              "shape, dtype and device")
-    if hd not in (64, 128):
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {hd} not in "
-                         f"(64, 128)")
+                         f"{HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention kernel: dtype {q.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -54,6 +54,8 @@ _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 # give each part at least MIN_SPLIT_PAGES pages of the block table
 TARGET_CTAS = 4 * 132
 MIN_SPLIT_PAGES = 32
+# the head dims the kernel is built for (csrc/paged_attention.cu)
+HEAD_DIMS = (32, 64, 80, 128)
 # pool dtype -> the kernel's pool-type code (csrc/paged_attention.cu)
 _POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
@@ -342,7 +344,7 @@ def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
     for t in (q, k_pool, v_pool, own_k, own_v):   # read 16 bytes at a time
         _require(t is None or t.data_ptr() % 16 == 0,
                  "queries, pools and own K/V must be 16-byte aligned")
-    _require(hd in (64, 128), f"head_dim {hd} not in (64, 128)")
+    _require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
     _require(H % KVH == 0 and pool_hd == hd, "pool/query head mismatch")
     _require(v_pool.shape == k_pool.shape, "k/v pool shapes differ")
     _require(q.dtype in _FLOAT_DTYPES, f"query dtype {q.dtype}")

@@ -215,11 +215,30 @@ def paged_kv_update(pool: torch.Tensor, block_tables: torch.Tensor,
     window); new_kv [B, KVH, hd].
 
     Frozen decode lanes all point at the scratch block, so several lanes
-    may write the same scratch slot: harmless (scratch is never read
-    unmasked), but which lane's value lands there is nondeterministic on
-    CUDA.
+    may write the same scratch slot; which lane's value lands there is
+    nondeterministic on CUDA. That is harmless where only frozen lanes
+    read it and nothing of theirs persists; the hybrid passes each
+    lane's :func:`last_writer` to :func:`gqa_attention_decode` instead.
     """
     paged_kv_update_quant(pool, None, block_tables, slot_positions, new_kv)
+
+
+def last_writer(block_tables: torch.Tensor, positions: torch.Tensor,
+                window_len: int, bs: int) -> torch.Tensor:
+    """[B] lane indices: for each lane, the last lane whose decode write
+    this step lands in the same pool slot (itself where no later lane
+    shares it). Frozen lanes all write the scratch block, so they share
+    slots; a CPU scatter keeps the last lane's value, a CUDA one any
+    lane's. The hybrid's frozen lanes read those slots back unmasked and
+    carry what they read into their recurrent state (ROADMAP C, the
+    horizon drift), so it writes every shared slot with its last lane's
+    value: the same result on both devices, and the same in every run."""
+    slot = positions % window_len if window_len > 0 else positions
+    block = block_tables.long().gather(1, (slot // bs).long()[:, None])[:, 0]
+    target = block * bs + slot % bs
+    lanes = torch.arange(target.shape[0], device=target.device)
+    same = target[:, None] == target[None, :]
+    return torch.where(same, lanes[None, :], -1).amax(dim=1)
 
 
 def paged_kv_update_quant(pool: torch.Tensor, scale: Optional[torch.Tensor],
@@ -276,14 +295,16 @@ def paged_attention_decode(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 
 def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                         positions: torch.Tensor, cache: dict
+                         positions: torch.Tensor, cache: dict,
+                         writer: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """One-token decode step with the paged KV cache for one layer.
 
     x [B, 1, D]; positions [B]; cache holds this layer's k_pool/v_pool
     slices (and, for a quantized pool, its k_scale/v_scale slices) plus
-    block_tables, window_len and use_kernel. The pools are written in
-    place. Returns out [B, 1, D].
+    block_tables, window_len and use_kernel. ``writer`` [B] (the hybrid:
+    :func:`last_writer`) gives each lane the lane whose K/V it writes.
+    The pools are written in place. Returns out [B, 1, D].
     """
     B, _, D = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -297,6 +318,8 @@ def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cos, sin = cos[:, None, :], sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)  # rope applied at write time
+    if writer is not None:   # lanes sharing a slot write its last writer's
+        k, v = k[writer], v[writer]
 
     window_len = cache["window_len"]  # python int: cache capacity (tokens)
     # the rolling window: the write slot wraps at the cache capacity

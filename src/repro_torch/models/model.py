@@ -1,5 +1,6 @@
-"""Forward passes of the dense GQA stack and the ssm (Mamba2) stack,
-ported from ``repro/models/model.py``.
+"""Forward passes of the dense GQA stack, the ssm (Mamba2) stack and the
+hybrid (zamba2: groups of Mamba2 layers, each followed by one shared
+attention block), ported from ``repro/models/model.py``.
 
   forward_full(...)       — full-sequence forward (one-shot prefill and
                             training; ``use_kernel`` runs its attention
@@ -15,9 +16,15 @@ ported from ``repro/models/model.py``.
 loop. The paged pools (``[L, NB, bs, KVH, hd]``) and, for an int8/fp8
 pool, their scales (``k_scale``/``v_scale`` ``[L, NB, bs, KVH]``) are
 updated IN PLACE where the JAX package donated them to its jitted steps;
-so is an ssm stack's per-slot recurrent state (``ssm_state``
+so is an ssm or hybrid stack's per-slot recurrent state (``ssm_state``
 ``[L, B, H, P, N]`` f32, ``conv_state`` ``[L, B, W-1, di+2N]``). The
 returned cache dicts hold the same tensors.
+
+The hybrid's params stack its Mamba2 layers ``[G, per, ...]`` (G =
+``num_layers / hybrid_attn_every`` groups of ``per`` layers) beside one
+``shared_attn`` decoder layer; its recurrent state stays stacked over
+all ``num_layers`` (layer ``g * per + i``) and its pools over the G
+shared-attention invocations, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,13 +45,13 @@ POOL_KEYS = ("k_pool", "v_pool", "k_scale", "v_scale")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The stacks the port runs: dense GQA and the ssm (Mamba2) stack.
-    Hybrid, MoE, MLA and encoder-decoder archs are ROADMAP A9."""
-    if cfg.arch_type not in ("dense", "ssm") or cfg.use_mla \
+    """The stacks the port runs: dense GQA, the ssm (Mamba2) stack and
+    the hybrid. MoE, MLA and encoder-decoder archs are ROADMAP A9."""
+    if cfg.arch_type not in ("dense", "ssm", "hybrid") or cfg.use_mla \
             or cfg.is_encoder_decoder or cfg.uses_moe:
         raise NotImplementedError(
             f"repro_torch does not run {cfg.arch_type!r} stacks yet "
-            f"(hybrid, MoE, MLA and enc-dec are ROADMAP A9)")
+            f"(MoE, MLA and enc-dec are ROADMAP A9)")
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -56,11 +63,22 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"{cfg.arch_type!r} (as in the JAX package)")
 
 
+def _index(tree: dict, i: int) -> dict:
+    """Entry ``i`` of the leading axis of every tensor of ``tree``
+    (views)."""
+    return {k: (_index(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
 def _layer(params: dict, l: int) -> dict:
     """Layer ``l``'s slice of the stacked layer params (views)."""
-    return {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[l])
-            for k, v in params["layers"].items()}
+    return _index(params["layers"], l)
+
+
+def _groups(cfg: ModelConfig):
+    """The hybrid's (G groups, per Mamba2 layers in a group)."""
+    per = cfg.hybrid_attn_every
+    return cfg.num_layers // per, per
 
 
 def _embed(params, cfg, tokens):
@@ -85,38 +103,80 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     if cfg.arch_type == "ssm":
-        h, kvs = _ssm_stack_full(params, cfg, h, return_kv, use_kernel)
+        h, kvs = _ssm_stack_full(params["layers"], cfg.num_layers, cfg, h,
+                                 return_kv, use_kernel)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.arch_type == "hybrid":
+        h, kvs = _hybrid_stack_full(params, cfg, h, positions, return_kv,
+                                    use_kernel)
+        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs
     ks, vs = [], []
     for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+        h, kv = _attn_block_full(_layer(params, l), cfg, h, positions,
+                                 return_kv, use_kernel)
         if return_kv:
-            a, (k, v) = L.gqa_attention_full(
-                lp["attn"], cfg, a_in, positions,
-                window=cfg.sliding_window, return_kv=True,
-                use_kernel=use_kernel)
-            ks.append(k)
-            vs.append(v)
-        else:
-            a = L.gqa_attention_full(lp["attn"], cfg, a_in, positions,
-                                     window=cfg.sliding_window,
-                                     use_kernel=use_kernel)
-        h = h + a
-        h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+            ks.append(kv[0])
+            vs.append(kv[1])
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     return hidden, kvs
 
 
-def _ssm_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
+def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
+                     positions: torch.Tensor, return_kv: bool,
+                     use_kernel: bool):
+    """One decoder layer (``ln1`` -> GQA -> residual, ``ln2`` -> SwiGLU ->
+    residual) over a full sequence: (h, (k, v) or None)."""
+    a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    kv = None
+    if return_kv:
+        a, kv = L.gqa_attention_full(
+            lp["attn"], cfg, a_in, positions, window=cfg.sliding_window,
+            return_kv=True, use_kernel=use_kernel)
+    else:
+        a = L.gqa_attention_full(lp["attn"], cfg, a_in, positions,
+                                 window=cfg.sliding_window,
+                                 use_kernel=use_kernel)
+    h = h + a
+    h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h, kv
+
+
+def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                       positions: torch.Tensor, return_kv: bool,
+                       use_kernel: bool):
+    """The hybrid's G groups over a full sequence, each ``per`` Mamba2
+    layers and then the shared attention block: (h, ((ssm_state
+    [G, per, B, H, P, N], conv_state [G, per, B, W-1, di+2N]), (k, v)
+    each [G, B, S, KVH, hd])) or (h, None)."""
+    G, per = _groups(cfg)
+    sa = params["shared_attn"]
+    states, ks, vs = [], [], []
+    for g in range(G):
+        h, st = _ssm_stack_full(_index(params["layers"], g), per, cfg, h,
+                                return_kv, use_kernel)
+        h, kv = _attn_block_full(sa, cfg, h, positions, return_kv,
+                                 use_kernel)
+        if return_kv:
+            states.append(st)
+            ks.append(kv[0])
+            vs.append(kv[1])
+    if not return_kv:
+        return h, None
+    return h, ((torch.stack([s for s, _ in states]),
+                torch.stack([c for _, c in states])),
+               (torch.stack(ks), torch.stack(vs)))
+
+
+def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
                     return_kv: bool, use_kernel: bool):
-    """The Mamba2 layers over a full sequence: (h, (ssm_state
-    [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N]) or None)."""
+    """``n`` Mamba2 layers (``layers``: {norm, mixer} stacked over them)
+    over a full sequence: (h, (ssm_state [n, B, H, P, N] f32, conv_state
+    [n, B, W-1, di+2N]) or None)."""
     ss, cs = [], []
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+    for l in range(n):
+        lp = _index(layers, l)
         x_in = L.rms_norm(h, lp["norm"], cfg.norm_eps)
         if return_kv:
             out, s_l, c_l = L.mamba2_mixer_full(
@@ -136,9 +196,11 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
     stack, (ssm_state [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N])
-    for the ssm stack. ``use_kernel`` runs each layer's attention through
-    the flash-attention wrapper, or each Mamba2 layer's scan through the
-    SSD scan wrapper (forward only: neither has a backward)."""
+    for the ssm stack, and ((ssm_state, conv_state) each [G, per, B, ...],
+    (k, v) each [G, B, S, KVH, hd]) for the hybrid. ``use_kernel`` runs
+    each attention layer through the flash-attention wrapper, and each
+    Mamba2 layer's scan through the SSD scan wrapper (forward only:
+    neither has a backward)."""
     hidden, kvs = _forward_hidden(params, cfg, tokens, return_kv,
                                   use_kernel)
     out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
@@ -171,33 +233,57 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = _embed(params, cfg, tokens)  # [B, 1, D]
     if cfg.arch_type == "ssm":
         for l in range(cfg.num_layers):
-            lp = _layer(params, l)
-            out, ns, nc = L.mamba2_mixer_decode(
-                lp["mixer"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
-                cache["ssm_state"][l], cache["conv_state"][l],
-                use_kernel=use_kernel)
-            if not use_kernel:  # the kernel wrote the layer's state in place
-                cache["ssm_state"][l] = ns
-                cache["conv_state"][l] = nc
-            h = h + out
-        hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
-        return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
-                "cache": dict(cache)}
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
-        layer_cache = {"block_tables": cache["block_tables"],
-                       "window_len": window_len, "use_kernel": use_kernel}
-        for key in POOL_KEYS:
-            if key in cache:
-                layer_cache[key] = cache[key][l]
-        a = L.gqa_attention_decode(
-            lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-            positions, layer_cache)
-        h = h + a
-        h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+            h = _mamba_decode(_layer(params, l), cfg, h, cache, l,
+                              use_kernel)
+    elif cfg.arch_type == "hybrid":
+        G, per = _groups(cfg)
+        writer = L.last_writer(cache["block_tables"], positions,
+                               window_len, cfg.kv_block_size)
+        for g in range(G):
+            gp = _index(params["layers"], g)
+            for i in range(per):
+                h = _mamba_decode(_index(gp, i), cfg, h, cache, g * per + i,
+                                  use_kernel)
+            h = _attn_decode(params["shared_attn"], cfg, h, positions,
+                             cache, g, window_len, use_kernel, writer)
+    else:
+        for l in range(cfg.num_layers):
+            h = _attn_decode(_layer(params, l), cfg, h, positions, cache, l,
+                             window_len, use_kernel)
     hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
     return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
             "cache": dict(cache)}
+
+
+def _mamba_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
+                  l: int, use_kernel: bool) -> torch.Tensor:
+    """One Mamba2 layer's decode over layer ``l`` of the recurrent state
+    (updated in place)."""
+    out, ns, nc = L.mamba2_mixer_decode(
+        lp["mixer"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
+        cache["ssm_state"][l], cache["conv_state"][l], use_kernel=use_kernel)
+    if not use_kernel:  # the kernel wrote the layer's state in place
+        cache["ssm_state"][l] = ns
+        cache["conv_state"][l] = nc
+    return h + out
+
+
+def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
+                 positions: torch.Tensor, cache: dict, idx: int,
+                 window_len: int, use_kernel: bool,
+                 writer: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder layer's decode against entry ``idx`` of the paged
+    pools (written in place; ``writer``: ``layers.last_writer``)."""
+    layer_cache = {"block_tables": cache["block_tables"],
+                   "window_len": window_len, "use_kernel": use_kernel}
+    for key in POOL_KEYS:
+        if key in cache:
+            layer_cache[key] = cache[key][idx]
+    a = L.gqa_attention_decode(
+        lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
+        layer_cache, writer=writer)
+    h = h + a
+    return h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +407,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     selects the pool storage (f32|bf16|int8|fp8); the quantized dtypes add
     ``k_scale``/``v_scale`` [L, NB, bs, KVH] of unit f32 scales (see
     ``models.kv_quant``). The ssm stack has no pools (no attention
-    layer) but the block tables, and per-slot recurrent state: zeroed
-    ``ssm_state`` [L, batch, H, P, N] f32 and ``conv_state``
+    layer) but the block tables; the hybrid has one pool entry per
+    shared-attention invocation. Both have per-slot recurrent state:
+    zeroed ``ssm_state`` [L, batch, H, P, N] f32 and ``conv_state``
     [L, batch, W-1, di+2N] bf16, whatever the params' dtype (as in the
     JAX package)."""
     check_ported(cfg)
@@ -343,7 +430,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
         if scales is not None:
             cache["k_scale"] = scales
             cache["v_scale"] = scales.clone()
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         L_ = cfg.num_layers
         cache["ssm_state"] = torch.zeros(
             (L_, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state_size),
@@ -364,10 +451,24 @@ def write_prefill_kv(cfg: ModelConfig, cache: dict, kvs,
     quantized against its own per-head absmax: the same bytes the chunked
     and decode writes store for that token. For the ssm stack ``kvs`` is
     the end state (ssm_state, conv_state) of the whole batch, which
-    replaces the cache's, dtypes included, as in the JAX package."""
+    replaces the cache's, dtypes included, as in the JAX package; the
+    hybrid's ``kvs`` is (its end state stacked [G, per, ...], its
+    attention K/V), which replace the state and scatter into the pools.
+    """
     if cfg.arch_type == "ssm":
         cache["ssm_state"], cache["conv_state"] = kvs
         return cache
+    if cfg.arch_type == "hybrid":
+        (ss, cs), kvs = kvs
+        cache["ssm_state"] = ss.reshape(-1, *ss.shape[2:])
+        cache["conv_state"] = cs.reshape(-1, *cs.shape[2:])
+    return write_pool_kv(cfg, cache, kvs)
+
+
+def write_pool_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
+    """Scatter attention K/V (k, v) each [La, B, S, KVH, hd] into the
+    paged pools of ``cache`` (with its block tables) in place, slot =
+    position; the attention half of :func:`write_prefill_kv`."""
     bt = cache["block_tables"].long()
     bs = cfg.kv_block_size
     k, v = kvs

@@ -19,12 +19,16 @@ A :class:`DecodeGraph` holds
   * the graph, captured over one set of params, pool (and recurrent
     state) tensors and generator. Every later call must pass the same
     ones (the engine keeps one pool for its lifetime); other ones raise.
+    A hybrid (zamba2) cache holds both the pools and the recurrent state:
+    the check covers every cache tensor.
 
 The first call captures. A warm-up call on a side stream comes first
 (cuBLAS handles and workspaces, the kernels' libraries), made free of
 side effects: every lane's limit is 0, so each KV write lands in the
-scratch block; the recurrent state is a zeroed stand-in; it draws from a
-throwaway generator; and it counts no kernel launch. The capture then
+scratch block, whose contents it puts back afterwards (the hybrid's
+frozen lanes read that block and carry it into their recurrent state);
+the recurrent state is a zeroed stand-in; it draws from a throwaway
+generator; and it counts no kernel launch. The capture then
 registers the engine's generator, so that each replay advances its
 Philox offset as the eager calls would. The kernel launches that the
 wrappers count while the capture records them are kept, and each replay
@@ -49,7 +53,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-# cache entries every lane's decode writes (the ssm stack's per-slot state)
+# cache entries every lane's decode writes (the ssm and hybrid stacks'
+# per-slot state); a stopped lane's KV writes go to the scratch block
 RECURRENT = ("ssm_state", "conv_state")
 N_OUTPUTS = 7   # tokens, confidences, scores, token_valid, score_valid,
 #                 final_tokens, positions
@@ -59,10 +64,12 @@ class DecodeGraph:
     """One decode-horizon function (the engine's ``batched_decode`` for a
     key) as one device call; call it as that function."""
 
-    def __init__(self, fn: Callable, device: torch.device, pool=None):
+    def __init__(self, fn: Callable, device: torch.device, pool=None,
+                 scratch_block: int = 0):
         self.fn = fn
         self.device = device
         self.pool = pool
+        self.scratch_block = scratch_block
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: Optional[tuple] = None
         self.outputs: Optional[tuple] = None
@@ -114,6 +121,8 @@ class DecodeGraph:
         t0 = time.perf_counter()
         stand_in = {k: torch.zeros_like(v) if k in RECURRENT else v
                     for k, v in cache.items()}
+        scratch = {k: v[:, self.scratch_block].clone()
+                   for k, v in cache.items() if k not in RECURRENT}
         self.inputs[2].zero_()   # limits: every lane stopped
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -122,7 +131,9 @@ class DecodeGraph:
             self._call(params, stand_in, torch.Generator(self.device),
                        scorer_params)
         current.wait_stream(side)
-        del stand_in
+        for k, v in scratch.items():
+            cache[k][:, self.scratch_block] = v
+        del stand_in, scratch
         graph = torch.cuda.CUDAGraph()
         if rng is not None:
             graph.register_generator_state(rng)

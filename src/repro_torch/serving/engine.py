@@ -23,7 +23,11 @@ What differs is the device side:
     only, and its device state is one recurrent state per decode slot
     (``ssm_state`` / ``conv_state``), written at admission, cleared at
     release and updated in place by every decode iteration, as the JAX
-    engine does with its per-slot state;
+    engine does with its per-slot state. The hybrid (zamba2) has both:
+    a paged pool for its shared-attention invocations and the per-slot
+    state of its Mamba2 layers. Like the JAX engine, both fall back to
+    one-shot prefill, switch the prefix cache off, and refuse an
+    int8/fp8 pool;
   * the engine RNG is a ``torch.Generator`` on the engine's device;
   * on a CUDA engine each ``(horizon, lanewise)`` decode horizon is one
     device call, as the JAX engine's jitted horizon is: a CUDA graph,
@@ -58,7 +62,7 @@ from repro_torch.models.model import (POOL_KEYS, copy_kv_block,
                                       init_decode_cache, multi_decode_step,
                                       prefill_chunk_step,
                                       supports_chunked_prefill,
-                                      write_prefill_kv)
+                                      write_pool_kv)
 from repro_torch.serving.cuda_graph import DecodeGraph
 from repro_torch.serving.faults import FaultPlan, FaultStats, RecoveryConfig
 from repro_torch.serving.kv_manager import BlockManager
@@ -361,8 +365,8 @@ class Engine:
         self._prefill = prefill
 
         @torch.no_grad()
-        def write_kv(sub_cache, kvs, lens):
-            return write_prefill_kv(cfg, sub_cache, kvs, lens)
+        def write_kv(sub_cache, kvs):
+            return write_pool_kv(cfg, sub_cache, kvs)
 
         self._write_kv = write_kv
 
@@ -395,7 +399,8 @@ class Engine:
         if fn is None:
             fn = self._make_decode(horizon, lanewise)
             if not self._eager_decode:
-                fn = DecodeGraph(fn, self.device, self._graph_pool)
+                fn = DecodeGraph(fn, self.device, self._graph_pool,
+                                 self.block_mgr.scratch_block)
             self._decode_fns[key] = fn
         return fn
 
@@ -506,10 +511,17 @@ class Engine:
     def _split_prefill_kvs(self, kvs) -> Tuple[Optional[tuple],
                                                Optional[tuple]]:
         """forward_full(return_kv=True) output of a batch-1 prefill ->
-        (paged attention KV | None, per-slot recurrent state | None)."""
+        (paged attention KV | None, per-slot recurrent state | None). The
+        hybrid has both: its state comes stacked [G, per, ...] and goes
+        into the slot flat over its ``num_layers`` Mamba2 layers."""
         if self.cfg.arch_type == "ssm":
             ss, cs = kvs
             return None, (ss[:, 0], cs[:, 0])
+        if self.cfg.arch_type == "hybrid":
+            (ss, cs), (k, v) = kvs
+            ssf = ss.reshape(-1, *ss.shape[2:])
+            csf = cs.reshape(-1, *cs.shape[2:])
+            return (k[:, :1], v[:, :1]), (ssf[:, 0], csf[:, 0])
         k, v = kvs
         return (k[:, :1], v[:, :1]), None
 
@@ -521,9 +533,8 @@ class Engine:
         # a quantized pool's scales ride along with it
         sub = {k: v for k, v in cache.items() if k in POOL_KEYS}
         sub["block_tables"] = self.to_device(block_row[None, :])
-        lens = torch.full((1,), seq_len, dtype=torch.int32,
-                          device=self.device)
-        self._write_kv(sub, attn_kvs, lens)
+        # slots past seq_len take the padding's K/V: attention masks them
+        self._write_kv(sub, attn_kvs)
         return cache
 
     def _write_slot_state(self, cache: dict, slot_state, slot: int) -> dict:

@@ -171,8 +171,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
     with pytest.raises(ValueError, match="lengths"):
         ops.paged_attention(q, kp, vp, bt, lens.long(), scale=0.1)
     with pytest.raises(ValueError, match="head_dim"):
-        ops.paged_attention(q[..., :32].contiguous(), kp[..., :32]
-                            .contiguous(), vp[..., :32].contiguous(), bt,
+        ops.paged_attention(q[..., :48].contiguous(), kp[..., :48]
+                            .contiguous(), vp[..., :48].contiguous(), bt,
                             lens, scale=0.1)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"paged_attention_decode": 1,
@@ -455,7 +455,8 @@ SSD_TOL = dict(rtol=2e-3, atol=2e-3)
     (1, 256, 4, 32, 64, 128, False), (2, 96, 5, 16, 32, 32, False),
     (2, 33, 8, 32, 16, 64, False), (1, 512, 80, 64, 128, 256, True),
     (2, 64, 8, 32, 16, 32, True), (1, 4096, 80, 64, 128, 256, True),
-    (2, 512, 80, 64, 128, 256, False)])
+    (2, 512, 80, 64, 128, 256, False), (1, 2048, 80, 64, 64, 256, True),
+    (2, 96, 8, 32, 16, 32, True)])
 def test_ssd_kernel_matches_plain(gen, B, S, H, P, N, chunk, stress):
     """The JAX test shapes (one with a head group that does not divide
     H), a chunk of 33 (S under the chunk), the full-width heads with the
@@ -587,7 +588,8 @@ def _ssm_projection(g, B, H, P, N, dtype, pad=8):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,P,N,W", [(16, 80, 64, 128, 4), (3, 5, 24, 16, 4),
-                                       (2, 3, 100, 4, 2), (1, 7, 8, 64, 8)])
+                                       (2, 3, 100, 4, 2), (1, 7, 8, 64, 8),
+                                       (16, 80, 64, 64, 4), (8, 8, 32, 16, 4)])
 def test_ssm_decode_kernel_matches_plain(gen, dtype, B, H, P, N, W):
     """Chained steps (each side feeds its own states on): the conv state
     exactly (it only shifts the inputs), y and the ssm state at f32's 1e-4
@@ -642,6 +644,16 @@ class TickCountingEngine(te.Engine):
         return super().decode_fn(horizon, lanewise)
 
 
+def _no_eos(params, cfg):
+    """Zero the output projection's EOS row, in place: EOS's logit is then
+    0, below the largest logit of the other tokens (random weights), so a
+    greedy trace decodes its whole budget and 8 traces fill the 16-block
+    pool."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    w[get_tokenizer().eos_id] = 0
+    return params
+
+
 def _graph_serve(arch, params, scorer, eager, sampled, faults=None):
     cfg = serving_config(arch)
     greedy = SamplingParams(temperature=0.0, top_k=0, top_p=1.0,
@@ -672,16 +684,18 @@ def _graph_serve(arch, params, scorer, eager, sampled, faults=None):
 
 
 @pytest.mark.parametrize("sampled", [False, True])
-@pytest.mark.parametrize("arch", ["qwen3-4b-thinking", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b-thinking", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
 def test_graphed_engine_matches_eager_engine(gen, arch, sampled):
-    """The smoke config on the card, f32 params, STEP: one replay per tick,
+    """The smoke config on the card, f32 params without EOS (so greedy
+    traces fill the pool and STEP prunes), STEP: one replay per tick,
     the eager engine's kernel launches, identical tokens, statuses and
     prunes, scores within 1e-5. ``sampled`` serves one request at
     temperature 0.8 beside a greedy one (the lane-wise sampler) from the
     same generator seed: the graph advances the registered generator's
     Philox offset as the eager draws do."""
     cfg = serving_config(arch)
-    params = _f32(init_params(cfg, gen))
+    params = _no_eos(_f32(init_params(cfg, gen)), cfg)
     scorer = init_scorer(gen, cfg.d_model)
     e_eng, e_res, e_counts = _graph_serve(arch, params, scorer, True,
                                           sampled)
@@ -694,8 +708,12 @@ def test_graphed_engine_matches_eager_engine(gen, arch, sampled):
     assert {k: g_counts[k] for k in kernels} == \
         {k: e_counts[k] for k in kernels}
     assert g_counts["step_score"] > 0
-    if arch == "mamba2-2.7b":
-        assert g_counts["ssm_decode"] == g_counts["step_score"] * cfg.num_layers
+    if arch != "qwen3-4b-thinking":
+        assert g_counts["ssm_decode"] == \
+            g_counts["step_score"] * cfg.num_layers
+    if arch == "zamba2-2.7b":   # one decode per shared-attention invocation
+        assert g_counts["paged_attention_decode"] == \
+            g_counts["step_score"] * len(cfg.attention_layer_ids())
     for g, e in zip(g_res, e_res):
         assert (g.num_pruned, g.status) == (e.num_pruned, e.status)
         for tg, te_ in zip(g.traces, e.traces):
@@ -726,3 +744,231 @@ def test_degrade_to_dense_drops_the_kernel_graphs(gen):
     for g, e in zip(g_res, e_res):
         for tg, te_ in zip(g.traces, e.traces):
             assert tg.output_tokens == te_.output_tokens
+
+
+# ---------------------------------------------------------------------------
+# head dims beyond 64 and 128 (zamba2: 80, its smoke config: 32), granite's
+# 48 query heads over one kv head, the hybrid and the dense archs
+# ---------------------------------------------------------------------------
+
+def _any_pools(g, B, bp, KVH, hd, pool, page=16):
+    """(k, v, block tables, scale kwargs) over a float or int8/fp8 pool."""
+    if pool in QUANT:
+        kq, vq, bt, ks, vs = _quant_pools(g, B, bp, KVH, hd, pool, page)
+        return kq, vq, bt, dict(k_scale=ks, v_scale=vs)
+    kp, vp, bt = _pools(g, B, bp, KVH, hd, POOLS[pool], page)
+    return kp, vp, bt, {}
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 80])
+def test_decode_kernel_head_dims(gen, pool, dtype, hd):
+    """Decode at hd 32 and 80 over every pool dtype (hd 80 pads a bf16
+    row to 16 lanes, an f32 row to 32, an int8/fp8 row to 8): a 64-page
+    table, so each lane's pages split in two and merge."""
+    B, KVH, G, bp = 6, 4, 2, 64
+    lens = torch.tensor([0, 1, 15, 16, 333, 1000], dtype=torch.int32,
+                        device="cuda")
+    assert pa.split_count(bp, B * KVH) > 1
+    q = torch.randn(B, KVH * G, hd, generator=gen, device="cuda").to(dtype)
+    kp, vp, bt, scales = _any_pools(gen, B, bp, KVH, hd, pool)
+    scale = 1.0 / math.sqrt(hd)
+    ops.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=scale, **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, scale,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = "decode_quant" if scales else "decode"
+    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_mqa_group(gen, pool, dtype):
+    """granite-20b's shape: 48 query heads over one kv head at hd 128, so
+    the grid holds 12 row groups of 4 per lane."""
+    B, KVH, G, hd, bp = 8, 1, 48, 128, 16
+    lens = torch.tensor([0, 1, 16, 17, 100, 200, 255, 256],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(B, KVH * G, hd, generator=gen, device="cuda").to(dtype)
+    kp, vp, bt, scales = _any_pools(gen, B, bp, KVH, hd, pool)
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=hd ** -0.5,
+                             **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, hd ** -0.5,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,KVH", [(16, 8), (24, 8), (24, 2)])
+def test_decode_kernel_dense_arch_groups(gen, pool, dtype, H, KVH):
+    """The other dense archs' head groups at hd 128 over 8 lanes:
+    qwen3-1.7b (G = 2), phi4-mini (G = 3, a partly filled row group) and
+    starcoder2 (G = 12)."""
+    B, hd, bp = 8, 128, 16
+    lens = torch.tensor([0, 1, 16, 17, 100, 200, 255, 256],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    kp, vp, bt, scales = _any_pools(gen, B, bp, KVH, hd, pool)
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=hd ** -0.5,
+                             **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, hd ** -0.5,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 80])
+@pytest.mark.parametrize("C,prefix,nvalid,window", [(16, 37, 11, None),
+                                                    (64, 200, 50, 128)])
+def test_prefill_kernel_head_dims(gen, pool, dtype, hd, C, prefix, nvalid,
+                                  window):
+    """The chunked-prefill face at hd 32 and 80: bf16 queries over a
+    bf16/int8/fp8 pool take the tensor-core tile (padded shared-memory
+    rows; hd 80's int8/fp8 codes copy in ragged rounds), the rest the
+    f32 face."""
+    KVH, G, bp = 4, 2, 16
+    q = torch.randn(1, C, KVH * G, hd, generator=gen, device="cuda")
+    own = [torch.randn(1, C, KVH, hd, generator=gen, device="cuda")
+           .to(dtype) for _ in range(2)]
+    kp, vp, bt, scales = _any_pools(gen, 1, bp, KVH, hd, pool)
+    pl = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    nv = torch.tensor([nvalid], dtype=torch.int32, device="cuda")
+    args = (q.to(dtype), kp, vp, bt, pl, nv, *own)
+    ops.reset_launch_counts()
+    got = pa.paged_attention_prefill(*args, scale=0.1, window=window,
+                                     **scales)
+    want = pa.paged_attention_prefill_plain(*args, 0.1, window,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = "prefill_quant" if scales else "prefill"
+    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert bool((got[0, nvalid:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 128),
+                                           (False, None), (False, 50)])
+@pytest.mark.parametrize("hd,S", [(32, 256), (80, 384)])
+def test_flash_kernel_head_dims(gen, dtype, causal, window, hd, S):
+    q, k, v = (torch.randn(2, 3, S, hd, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_zamba2_shape(gen, dtype):
+    """zamba2's forward: B = 1, H = 32, S = 2048, hd 80, causal."""
+    q, k, v = (torch.randn(1, 32, 2048, 80, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_head_dims_outside_the_built_set_raise(gen):
+    """hd 48 is a multiple of 16 but not built: both wrappers raise and
+    name the head dims they take; nothing falls back to a plain version."""
+    q = torch.randn(2, 4, 48, generator=gen, device="cuda")
+    kp, vp, bt = _pools(gen, 2, 2, 2, 48, torch.bfloat16)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"\(32, 64, 80, 128\)"):
+        pa.paged_attention(q.bfloat16(), kp, vp, bt, lens, scale=0.1)
+    x = torch.randn(1, 2, 128, 48, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match=r"\(32, 64, 80, 128\)"):
+        fa.flash_attention(x, x, x)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def _smoke_engines(gen, arch, **kw):
+    """Greedy STEP on ``arch``'s smoke config, f32 params without EOS
+    (every trace decodes its 40 tokens, so 8 traces fill the 16-block
+    pool): the kernel engine's and the dense engine's results and launch
+    counts."""
+    cfg = serving_config(arch)
+    params = _no_eos(_f32(init_params(cfg, gen)), cfg)
+    scorer = init_scorer(gen, cfg.d_model)
+    prompt = get_tokenizer().encode("3+5-2=", add_bos=True)
+    out = {}
+    for use_kernel in (True, False):
+        ecfg = te.EngineConfig(
+            max_batch=8, num_blocks=16, capacity=128, max_new_tokens=40,
+            sampling=SamplingParams(temperature=0.0, top_k=0, top_p=1.0,
+                                    max_new_tokens=40),
+            use_kernel=use_kernel, decode_horizon=4, faults=None, **kw)
+        eng = te.Engine(params, cfg, ecfg, make_policy("step"),
+                        scorer_params=scorer)
+        ops.reset_launch_counts()
+        res = eng.serve(prompt, 8)
+        torch.cuda.synchronize()
+        assert eng.pool_drained()
+        out[use_kernel] = (res, ops.launch_counts())
+    return cfg, params, out
+
+
+def _same_greedy(k, d):
+    assert k.num_pruned == d.num_pruned > 0
+    for tk, td in zip(k.traces, d.traces):
+        assert tk.output_tokens == td.output_tokens
+        assert tk.status == td.status
+        assert len(tk.step_scores) == len(td.step_scores)
+        for a, b in zip(tk.step_scores, td.step_scores):
+            assert abs(a - b) <= 1e-5
+
+
+def test_zamba2_kernel_paths_match_dense_on_card(gen):
+    """zamba2's smoke config, f32 params: ``forward_full(use_kernel=True)``
+    (K4 per Mamba2 layer, K3 at hd 32 per shared-attention invocation)
+    against the dense forward at 1e-4, and the kernel engine (K1 at hd 32,
+    ``ssm_decode``, K2) against the dense engine: identical greedy tokens
+    and statuses, step scores within 1e-5."""
+    cfg, params, runs = _smoke_engines(gen, "zamba2-2.7b", kv_dtype="f32")
+    (k, kc), (d, dc) = runs[True], runs[False]
+    _same_greedy(k, d)
+    G = len(cfg.attention_layer_ids())
+    assert kc["paged_attention_decode"] == kc["step_score"] * G > 0
+    assert kc["ssm_decode"] == kc["step_score"] * cfg.num_layers
+    assert dc["paged_attention_decode"] == dc["ssm_decode"] == 0
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = tm.forward_full(params, cfg, tokens, use_kernel=True)
+    counts = ops.launch_counts()
+    want = tm.forward_full(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert counts["ssd_scan"] == cfg.num_layers
+    assert counts["flash_attention"] == G
+    torch.testing.assert_close(got["logits"], want["logits"],
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-20b",
+                                  "phi4-mini-3.8b", "starcoder2-3b"])
+def test_dense_arch_engine_kernel_path_matches_dense_on_card(gen, arch):
+    """Each dense arch's smoke config (granite: 4 query heads over one kv
+    head; granite and starcoder2 untied, without qk-norm) through K1 and
+    K2 against the dense engine, f32 params and pool."""
+    _, _, runs = _smoke_engines(gen, arch, kv_dtype="f32")
+    (k, kc), (d, _) = runs[True], runs[False]
+    assert kc["paged_attention_decode"] > 0 and kc["step_score"] > 0
+    _same_greedy(k, d)

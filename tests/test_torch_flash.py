@@ -45,7 +45,8 @@ def _qkv(seed, B, H, S, hd, dt):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("mask", list(MASKS))
-@pytest.mark.parametrize("B,H,S,hd", [(1, 2, 256, 32), (2, 1, 64, 64)])
+@pytest.mark.parametrize("B,H,S,hd", [(1, 2, 256, 32), (2, 1, 64, 64),
+                                      (1, 2, 128, 80)])
 def test_plain_matches_pallas(dt, mask, B, H, S, hd):
     causal, window = MASKS[mask]
     jargs, targs = _qkv(0, B, H, S, hd, dt)

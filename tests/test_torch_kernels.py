@@ -54,6 +54,9 @@ from torch_parity import (BF16, F32, decode_case, pair, prefill_case,  # noqa: E
     (3, 8, 2, 64, 16, 4),     # GQA
     (2, 4, 4, 128, 32, 2),    # MHA
     (2, 16, 8, 64, 64, 5),
+    (3, 8, 2, 32, 16, 3),     # zamba2's smoke head dim
+    (2, 4, 4, 80, 16, 3),     # zamba2's head dim, MHA
+    (2, 48, 1, 128, 16, 2),   # granite-20b's 48 query heads over 1
 ])
 def test_decode_plain_vs_oracle_and_pallas(B, H, KVH, hd, page, bp, dt):
     jargs, targs = decode_case(0, B, H, KVH, hd, page, bp, dt=dt)

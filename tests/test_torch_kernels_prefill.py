@@ -47,6 +47,21 @@ def test_prefill_plain_vs_oracle_and_pallas(window):
     np.testing.assert_allclose(to_np(got), to_np(kern), **F32)
 
 
+@pytest.mark.parametrize("window", [None, 9])
+def test_prefill_plain_hd80_vs_oracle_and_pallas(window):
+    """zamba2's head dim, as above."""
+    jargs, targs = prefill_case(18, 3, 6, 2, 2, 8, 3, starts=[13, 0, 8],
+                                nvalid=[6, 4, 1], hd=80)
+    scale = 1.0 / math.sqrt(80)
+    got = pa.paged_attention_prefill_plain(*targs, scale, window)
+    want = ref.paged_attention_prefill_ref(*jargs, scale=scale,
+                                           window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), **F32)
+    kern = j_paged_prefill(*jargs, scale=scale, window=window,
+                           interpret=True)
+    np.testing.assert_allclose(to_np(got), to_np(kern), **F32)
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_prefill_ragged_property(seed):
     """Random chunk starts (mid-page boundaries), ragged num_valid

@@ -167,7 +167,8 @@ def _quant_pools(seed, NB, page, KVH, hd, kv_dtype):
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("B,H,KVH,hd,page,bp", [(3, 4, 2, 32, 4, 3),
-                                               (2, 8, 2, 64, 16, 2)])
+                                               (2, 8, 2, 64, 16, 2),
+                                               (2, 4, 4, 80, 16, 2)])
 def test_decode_quant_plain_matches_pallas(kv_dtype, B, H, KVH, hd, page,
                                            bp):
     rs = np.random.RandomState(5)
@@ -195,8 +196,19 @@ def test_decode_quant_plain_matches_pallas(kv_dtype, B, H, KVH, hd, page,
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("window", [None, 3])
 def test_prefill_quant_plain_matches_pallas(kv_dtype, window):
+    _prefill_quant_case(kv_dtype, window, 32)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("window", [None, 3])
+def test_prefill_quant_plain_matches_pallas_hd80(kv_dtype, window):
+    """zamba2's head dim (five 16-byte code chunks per row)."""
+    _prefill_quant_case(kv_dtype, window, 80)
+
+
+def _prefill_quant_case(kv_dtype, window, hd):
     rs = np.random.RandomState(7)
-    B, C, KVH, G, hd, page, bp = 2, 4, 2, 2, 32, 4, 3
+    B, C, KVH, G, page, bp = 2, 4, 2, 2, 4, 3
     H, NB = KVH * G, B * bp + 1
     (jk, jks, tk, tks), (jv, jvs, tv, tvs) = _quant_pools(8, NB, page, KVH,
                                                           hd, kv_dtype)

@@ -104,11 +104,10 @@ def test_params_layout_matches_jax_and_the_bridge(models):
 
 
 def test_unported_stacks_still_raise(models):
-    """Hybrid, MoE, MLA and enc-dec stacks raise naming ROADMAP A9; the
-    chunked prefill step stays the dense stack's, as in the JAX
-    package."""
+    """MoE, MLA and enc-dec stacks raise naming ROADMAP A9; the chunked
+    prefill step stays the dense stack's, as in the JAX package."""
     _, cfg, _, tp = models
-    for bad in (dataclasses.replace(cfg, arch_type="hybrid"),
+    for bad in (dataclasses.replace(cfg, is_encoder_decoder=True),
                 dataclasses.replace(cfg, arch_type="moe", num_experts=4),
                 dataclasses.replace(cfg, use_mla=True)):
         with pytest.raises(NotImplementedError, match="A9"):
@@ -121,7 +120,7 @@ def test_unported_stacks_still_raise(models):
                               torch.zeros((1, 4), dtype=torch.int32),
                               torch.ones((1, 4), dtype=torch.bool), {}, 64)
     with pytest.raises(KeyError, match="A9"):
-        t_registry.get_config("zamba2-2.7b")
+        t_registry.get_config("mixtral-8x7b")
 
 
 # ---------------------------------------------------------------------------

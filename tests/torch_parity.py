@@ -37,9 +37,10 @@ def decode_case(seed, B, H, KVH, hd, page, bp, lens=None, dt="f32"):
             [b for _, b in j] + [torch.from_numpy(bt), torch.from_numpy(lens)])
 
 
-def prefill_case(seed, B, C, KVH, G, page, bp, starts, nvalid, dt="f32"):
+def prefill_case(seed, B, C, KVH, G, page, bp, starts, nvalid, dt="f32",
+                 hd=32):
     rs = np.random.RandomState(seed)
-    H, hd = KVH * G, 32
+    H = KVH * G
     NB = B * bp + 2
     arrs = [rs.randn(B, C, H, hd), rs.randn(NB, page, KVH, hd),
             rs.randn(NB, page, KVH, hd)]
