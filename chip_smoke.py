@@ -80,11 +80,38 @@ Phases, each printing one JSON line:
                 invocation and iteration, ``ssm_decode`` once per Mamba2
                 layer, K2 once; the forward runs K4 per Mamba2 layer and
                 K3 (hd 80) per invocation;
- 15. dense_archs — qwen3-1.7b, starcoder2-3b, phi4-mini-3.8b and
-                granite-20b at full width, one at a time: a graphed STEP
-                serve against the eager one (1 x 8 traces, 32 new
-                tokens), then each arch's smoke-config kernel engine
-                against its dense engine.
+ 15. dense_archs — qwen3-1.7b, internvl2-2b (the vlm, served as text),
+                starcoder2-3b, phi4-mini-3.8b and granite-20b at full
+                width, one at a time: a graphed STEP serve against the
+                eager one (1 x 8 traces, 32 new tokens), then each arch's
+                smoke-config kernel engine against its dense engine;
+ 16. serve_mixtral, reference_mixtral — mixtral-8x7b at full width, 16
+                of its 32 layers (8 experts of 14336, top 2, capacity
+                factor 1.25; 47 GB of bf16 weights): phase 4's serve,
+                with the pairs and lanes that the expert capacity drops at
+                the first decode iteration; then the smoke config's kernel
+                engine against its dense engine under an 8-token window;
+ 17. batched_mixtral — a 4200-token prompt in chunks of 512 past the 4096
+                window (K1b's window branch), 4 traces, the prefix cache
+                on: graphed against eager, and the kernel engine against
+                the dense engine (statuses and prunes equal, logits from
+                one history and routing within 5%; where tokens part, both
+                paths' logits there);
+ 18. forward_mixtral — ``forward_full(use_kernel=True)`` at S = 8192
+                against the dense forward: one windowed K3 launch per
+                layer, and again with the dense routing replayed; each
+                token's first MoE routing flip within rounding's reach
+                of a gate tie, or after an earlier flip in its window;
+ 19. step_mixtral — phase 10 for mixtral's decode iteration.
+
+The kernels phase also checks K1a/K1c at batched_mixtral's decode (4
+lanes over 288-page rows: each lane's pages in 9 parts, merged), K1b/K1c
+under mixtral's window at its 512-token chunk, K3 at S = 8192 under the
+window and K2 at D = 4096; the times phase times them
+(``paged_attention_decode_mixtral``, ``paged_attention_prefill_swa``,
+``flash_attention_swa``, ``step_score_d4096``), each windowed bound
+counting only the visible (query, key) pairs and the pages that hold
+them.
 
 The line before the last is the kernel table as one JSON object, the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -93,6 +120,7 @@ exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -382,7 +410,8 @@ def check_paged(pa, kvq, g, errs, B, H, KVH, hd, bp, lens, chunks,
     K1a; int8 and fp8 pools, K1c) and the prefill face over each (C,
     prefix, num_valid) of ``chunks`` (float pool, K1b) and
     ``quant_chunks`` (K1c), each without a window and with one of 128.
-    ``errs`` gains ``{face}[_{pool}]{tag}_{dtype}``."""
+    A lane of length 0 must give a zero row. ``errs`` gains
+    ``{face}[_{pool}]{tag}_{dtype}``."""
     scale = 1.0 / math.sqrt(hd)
     dtypes = ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL))
     for dtype, tol in dtypes:
@@ -390,7 +419,7 @@ def check_paged(pa, kvq, g, errs, B, H, KVH, hd, bp, lens, chunks,
         got = pa.paged_attention(*args, scale=scale)
         want = pa.paged_attention_plain(*args, scale)
         torch.cuda.synchronize()
-        check(bool((got[lens.index(0)] == 0).all()),
+        check(0 not in lens or bool((got[lens.index(0)] == 0).all()),
               "K1a: empty-cache row not zero")
         errs[f"decode{tag}_{str(dtype)[6:]}"] = compare(
             f"K1a{tag} {dtype}", got, want, tol)
@@ -416,7 +445,7 @@ def check_paged(pa, kvq, g, errs, B, H, KVH, hd, bp, lens, chunks,
                                      v_scale=vs)
             want = pa.paged_attention_plain(*args, scale, ks, vs)
             torch.cuda.synchronize()
-            check(bool((got[lens.index(0)] == 0).all()),
+            check(0 not in lens or bool((got[lens.index(0)] == 0).all()),
                   "K1c: empty-cache row not zero")
             errs[f"decode_{kv_dtype}{tag}_{str(dtype)[6:]}"] = compare(
                 f"K1c{tag} decode {kv_dtype} {dtype}", got, want, tol)
@@ -454,6 +483,85 @@ def check_flash(fa, g, errs, H, hd, tag=""):
                 f"K3{tag} causal={causal} window={window} {dtype}", got, want,
                 tol))
         del qkv
+
+
+# mixtral-8x7b's sliding window and its chunked prefill's chunk width;
+# forward_mixtral's sequence, twice the window
+SWA_WINDOW, SWA_CHUNK = 4096, 512
+FORWARD_MIXTRAL_S = 8192
+# kernel against dense engine logits computed from one history: within
+# this share of their largest magnitude (forward_kernel's tolerance)
+PATHS_LOGIT_TOL = 0.05
+# batched_mixtral's capacity, its block-table width (pages of 16) and
+# lane lengths from its first decode iteration (4201) to its last (4216)
+MIXTRAL_CAPACITY = 4608
+MIXTRAL_BP = MIXTRAL_CAPACITY // 16
+MIXTRAL_LENS = (4201, 4206, 4211, 4216)
+
+
+def check_prefill_window(pa, kvq, g, errs):
+    """K1b and K1c's prefill face at mixtral-8x7b's chunked prefill: a
+    512-token chunk of 32 query heads over 8 (hd 128) under the 4096
+    window, whose edge moves through the chunk's rows across 32 pages of
+    the pooled prefix (prefix 4608), and the first chunk past the window
+    (prefix 4096, 104 valid); bf16 and f32 queries over bf16/f32 pools,
+    bf16 queries over int8/fp8 pools. ``errs`` gains ``prefill_swa_*``
+    and ``prefill_{int8,fp8}_swa_*``."""
+    H, KVH, hd, C, W = 32, 8, 128, SWA_CHUNK, SWA_WINDOW
+    scale = 1.0 / math.sqrt(hd)
+    for prefix, nvalid in ((4608, C), (4096, 104)):
+        bp = prefix // 16 + 1
+        for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                           (torch.float32, F32_TOL)):
+            args = prefill_inputs(g, C, H, KVH, hd, bp, prefix, nvalid,
+                                  dtype)
+            got = pa.paged_attention_prefill(*args, scale=scale, window=W)
+            want = pa.paged_attention_prefill_plain(*args, scale, W)
+            torch.cuda.synchronize()
+            key = f"prefill_swa_{str(dtype)[6:]}"
+            errs[key] = max(errs.get(key, 0.0), compare(
+                f"K1b swa prefix={prefix} nvalid={nvalid} {dtype}", got,
+                want, tol))
+            del args
+        for kv_dtype in QUANT:
+            q, kp, vp, bt, pl, nv, ok, ov = prefill_inputs(
+                g, C, H, KVH, hd, bp, prefix, nvalid, torch.float32)
+            kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
+            bf = torch.bfloat16
+            args = (q.to(bf), kq, vq, bt, pl, nv, ok.to(bf), ov.to(bf))
+            got = pa.paged_attention_prefill(*args, scale=scale, window=W,
+                                             k_scale=ks, v_scale=vs)
+            want = pa.paged_attention_prefill_plain(*args, scale, W, ks, vs)
+            torch.cuda.synchronize()
+            key = f"prefill_{kv_dtype}_swa_bfloat16"
+            errs[key] = max(errs.get(key, 0.0), compare(
+                f"K1c swa prefill {kv_dtype} prefix={prefix}", got, want,
+                BF16_TOL))
+            del args, q, kp, vp
+
+
+def flash_plain_by_heads(fa, q, k, v, window, step=4):
+    """K3's plain version over ``step`` heads at a time (the same
+    function): at S = 8192 all 32 heads' f32 scores would take 8.6 GB per
+    tensor."""
+    return torch.cat([fa.flash_attention_plain(
+        q[:, h:h + step], k[:, h:h + step], v[:, h:h + step], True, window)
+        for h in range(0, q.shape[1], step)], dim=1)
+
+
+def check_flash_window(fa, g, errs):
+    """K3 at forward_mixtral's shape: B = 1, H = 32, S = 8192, hd 128,
+    causal under the 4096 window, bf16 and f32."""
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        qkv = [torch.randn(1, 32, 8192, 128, generator=g, device="cuda")
+               .to(dtype) for _ in range(3)]
+        got = fa.flash_attention(*qkv, causal=True, window=SWA_WINDOW)
+        want = flash_plain_by_heads(fa, *qkv, SWA_WINDOW)
+        torch.cuda.synchronize()
+        errs[f"flash_swa_{str(dtype)[6:]}"] = compare(
+            f"K3 S=8192 window={SWA_WINDOW} {dtype}", got, want, tol)
+        del qkv, got, want
+        torch.cuda.empty_cache()
 
 
 def check_ssd(sd, g, errs, N, shapes, key):
@@ -502,14 +610,27 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     for H, KVH in ((16, 8), (24, 8), (24, 2)):
         check_paged(pa, kvq, g, errs, 8, H, KVH, 128, 32, lens8, [], [],
                     f"_h{H}kv{KVH}")
-    # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80
+    # mixtral-8x7b's decode at batched_mixtral's shape: 4 lanes of
+    # 4201-4216 slots over 288-page rows (capacity 4608), where the
+    # decode cuts each lane's pages into 9 parts and merges them (the
+    # other checks' 32-page rows run one part); then its chunked prefill
+    # under its window (K1b, K1c)
+    check(pa.split_count(MIXTRAL_BP, 4 * 8) > 1,
+          "K1a mixtral: the decode check runs no split")
+    check_paged(pa, kvq, g, errs, 4, 32, 8, 128, MIXTRAL_BP,
+                list(MIXTRAL_LENS), [], [], "_mixtral")
+    check_prefill_window(pa, kvq, g, errs)
+    # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80;
+    # then forward_mixtral's S = 8192 under the 4096 window
     check_flash(fa, g, errs, 32, 128)
     check_flash(fa, g, errs, 32, 80, "_hd80")
+    check_flash_window(fa, g, errs)
     # K2: B = 64, D = 2560 (qwen3-4b, mamba2, zamba2), hidden in bf16 and
     # f32; then the dense archs' widths over the dense_archs phase's 8
-    # lanes: D = 2048 (qwen3-1.7b), 3072 (phi4-mini, starcoder2) and 6144
-    # (granite-20b)
-    for B, D in ((64, 2560), (8, 2048), (8, 3072), (8, 6144)):
+    # lanes: D = 2048 (qwen3-1.7b, internvl2-2b), 3072 (phi4-mini,
+    # starcoder2) and 6144 (granite-20b); and mixtral-8x7b's D = 4096 over
+    # the serve's 16 lanes
+    for B, D in ((64, 2560), (8, 2048), (8, 3072), (8, 6144), (16, 4096)):
         w1 = torch.randn(D, 512, generator=g, device="cuda") * (2.0 / D) ** .5
         b1 = torch.randn(512, generator=g, device="cuda") * 0.1
         w2 = torch.randn(512, 1, generator=g, device="cuda") * 512 ** -0.5
@@ -537,8 +658,12 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     return errs
 
 
-def full_model(rt, arch="qwen3-4b-thinking"):
+def full_model(rt, arch="qwen3-4b-thinking", layers=None):
+    """``arch`` at full width (``layers`` cuts its depth), random seeded
+    weights and scorer: (cfg, params, scorer, params' count, init s)."""
     cfg = rt["registry"].get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     params = rt["init"].init_params(cfg, g)
@@ -709,22 +834,39 @@ def graphed_vs_eager(ops, make_engine, run, name, calls=3, fresh=False,
     return first, report
 
 
-def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
+def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
+                name=None):
     """The STEP serve at full width over a ``kv_dtype`` pool: phase
     ``serve`` (bf16, one-shot prefill) or ``serve_<kv_dtype>`` (int8/fp8,
-    chunked prefill, so both faces of the quantized kernel run)."""
+    chunked prefill, so both faces of the quantized kernel run), or
+    ``name``. An MoE model's line also gives, per layer, the (lane, k)
+    pairs and the lanes that the expert capacity drops at the first decode
+    iteration of the eager run."""
     E = rt["engine"]
-    name = "serve" if kv_dtype == "bf16" else f"serve_{kv_dtype}"
+    if name is None:
+        name = "serve" if kv_dtype == "bf16" else f"serve_{kv_dtype}"
     quant = kv_dtype in QUANT
     decode = "paged_attention_decode" + ("_quant" if quant else "")
     tok = rt["tokenizer"].get_tokenizer()
     problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
     prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
+    # With the prefix cache on, the pool outlives a serve, the scratch
+    # block that frozen lanes read included: an MoE routes those lanes
+    # beside the live ones, so under the capacity a later serve's tokens
+    # differ from the first's (ROADMAP C, as in the JAX engine). The
+    # serve's 15-token prompt fills no block to cache, so an MoE model's
+    # calls run with the cache off, each from a zeroed pool.
     ecfg = E.EngineConfig(max_batch=16, num_blocks=80, capacity=512,
                           max_new_tokens=128, sampling=greedy(rt, 128),
                           use_kernel="auto", decode_horizon=4,
                           prefill_chunk_size=chunk,
-                          prefix_cache=True, faults=None, kv_dtype=kv_dtype)
+                          prefix_cache=not cfg.uses_moe, faults=None,
+                          kv_dtype=kv_dtype)
+
+    drops = None
+    if cfg.uses_moe:   # the prefill's tokens must not pass for 16 lanes
+        check(len(prompt) != 16, f"{name}: a 16-token prompt")
+        drops, restore = record_moe_drops(rt["layers"], 16, cfg.num_layers)
 
     def make_engine(eager):
         engine = tick_counting(E)(params, cfg, ecfg,
@@ -739,7 +881,11 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
         check_result(res, engine)
         return [res]
 
-    first, report = graphed_vs_eager(ops, make_engine, run, name)
+    try:
+        first, report = graphed_vs_eager(ops, make_engine, run, name)
+    finally:
+        if drops is not None:
+            restore()
     res, launches = first["results"][0], first["launches"]
     check(launches[decode] > 0, f"{decode} never launched")
     if quant:
@@ -762,11 +908,41 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None):
            "decode_iterations": iters,
            "launches": launches,
            "decode_launches_per_iteration": launches[decode] / max(iters, 1),
+           "graph_replays_per_iteration":
+               launches["decode_graph_replays"] / max(iters, 1),
            "kv_block_bytes": E.kv_quant.pool_block_bytes(cfg, kv_dtype),
            "max_memory_allocated": first["max_memory_allocated"],
            "pool_drained": True, "graph": report}
+    if drops is not None:
+        check(len(drops) == cfg.num_layers,
+              f"{name}: recorded {len(drops)} MoE layers of the first "
+              f"decode iteration")
+        out["first_iteration_moe_drops"] = {
+            "capacity": int(drops[0][1]),
+            "pairs_dropped_per_layer": [int((~k).sum()) for k, _ in drops],
+            "lanes_without_moe_output_per_layer":
+                [int((~k).all(dim=-1).sum()) for k, _ in drops]}
     emit(name, **out)
     return out
+
+
+def record_moe_drops(L, lanes, layers):
+    """Wrap ``layers._moe_groups`` so that its first ``layers`` calls over
+    ``lanes`` tokens (the first decode iteration of the first engine that
+    runs) keep (which (lane, k) pairs the capacity keeps [lanes, K], the
+    capacity), with no host sync and nothing recorded inside a capture.
+    Returns (the records, a function that undoes the wrap)."""
+    records, inner = [], L._moe_groups
+
+    def recording(pe, xg, sel, w, E, capacity):
+        if (len(records) < layers and sel.shape[0] * sel.shape[1] == lanes
+                and not torch.cuda.is_current_stream_capturing()):
+            keep = L.moe_queue(sel, E, capacity)[2]
+            records.append((keep.reshape(lanes, -1), capacity))
+        return inner(pe, xg, sel, w, E, capacity)
+
+    L._moe_groups = recording
+    return records, lambda: setattr(L, "_moe_groups", inner)
 
 
 def phase_serve_sampled(rt, ops, cfg, params, scorer):
@@ -832,20 +1008,24 @@ def no_eos(params, cfg, eos_id):
 
 
 def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
-                          arch="qwen3-4b-thinking"):
+                          arch="qwen3-4b-thinking", window=None,
+                          prompt="3+5-2="):
     """Kernel engine vs dense engine on a small input: ``arch``'s smoke
-    config, f32 params with EOS suppressed (:func:`no_eos`: every trace
-    decodes its 40 tokens, so 8 traces fill the 16-block pool and STEP
-    prunes), greedy STEP over a ``kv_dtype`` pool — identical tokens,
-    statuses and prunes, step scores within 1e-5 (both paths dequantize
-    an int8/fp8 pool to the same f32 values; mamba2 has no pool)."""
+    config (its sliding window replaced by ``window``), f32 params with
+    EOS suppressed (:func:`no_eos`: every trace decodes its 40 tokens, so
+    8 traces fill the 16-block pool and STEP prunes), greedy STEP over a
+    ``kv_dtype`` pool — identical tokens, statuses and prunes, step
+    scores within 1e-5 (both paths dequantize an int8/fp8 pool to the
+    same f32 values; mamba2 has no pool)."""
     E = rt["engine"]
     cfg = rt["registry"].serving_config(arch)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tok = rt["tokenizer"].get_tokenizer()
     params = no_eos(to_f32(rt["init"].init_params(cfg, g)), cfg, tok.eos_id)
     scorer = rt["scorer"].init_scorer(g, cfg.d_model)
-    prompt = tok.encode("3+5-2=", add_bos=True)
+    prompt = tok.encode(prompt, add_bos=True)
     outs = {}
     for use_kernel in (True, False):
         ecfg = E.EngineConfig(max_batch=8, num_blocks=16, capacity=128,
@@ -856,9 +1036,13 @@ def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
         engine = E.Engine(params, cfg, ecfg,
                           rt["pruning"].make_policy("step"),
                           scorer_params=scorer)
+        ops = rt["ops"]
+        ops.reset_launch_counts()
         res = engine.serve(prompt, 8)
         check_result(res, engine)
         outs[use_kernel] = res
+        if use_kernel:
+            launches = ops.launch_counts()
     k, d = outs[True], outs[False]
     check([t.output_tokens for t in k.traces]
           == [t.output_tokens for t in d.traces], "kernel != dense tokens")
@@ -873,7 +1057,8 @@ def phase_smoke_reference(rt, kv_dtype="f32", chunk=None,
     if arch != "qwen3-4b-thinking":
         name = f"reference_{arch.split('-')[0]}"
     emit(name, config=cfg.name, kv_dtype=kv_dtype, prefill_chunk_size=chunk,
-         tokens_identical=True, num_pruned=k.num_pruned,
+         sliding_window=cfg.sliding_window, prompt_tokens=len(prompt),
+         launches=launches, tokens_identical=True, num_pruned=k.num_pruned,
          tokens_compared=sum(len(t.output_tokens) for t in k.traces),
          step_scores=sum(len(t.step_scores) for t in k.traces),
          max_step_score_err=err)
@@ -1235,6 +1420,352 @@ def phase_batched(rt, ops, cfg, params, scorer):
     return out
 
 
+def long_prompt(rt, n):
+    """An ``n``-token prompt: synthetic problems one after another."""
+    tok = rt["tokenizer"].get_tokenizer()
+    probs = rt["evaluate"].make_problems(n // 8, seed=SEED + 9)
+    ids = tok.encode("".join(rt["arithmetic"].make_prompt(p) for p in probs),
+                     add_bos=True)
+    check(len(ids) >= n, f"long prompt of {len(ids)} < {n} tokens")
+    return ids[:n]
+
+
+def phase_batched_mixtral(rt, ops, cfg, params, scorer):
+    """mixtral at full width (16 layers) where its 4096-token window bites:
+    1 request x 4 traces of a 4200-token prompt, chunked prefill in chunks
+    of 512 (the last chunk's queries 4096-4199 see no key left of their
+    window: K1b's window branch), the prefix cache on, capacity 4608,
+    greedy, 16 new tokens, kernels on. The graphed engine is held to the
+    eager one bit for bit; the eager kernel engine is held against the
+    eager dense engine: the same statuses and prunes, and every logit row
+    that the two paths compute from the same history (each lane's rows up
+    to the first output at which its tokens part; logits recorded at each
+    decode iteration of the two eager runs) within ``PATHS_LOGIT_TOL`` of
+    the rows' largest magnitude, where that iteration's MoE layers routed
+    every lane alike in both paths. The rows of an iteration that routed
+    some lane otherwise are counted apart, with the routing flips' dense
+    gate margins. Where tokens part, the line gives the first output at
+    which they do, with both paths' logits there: the dense path's margin
+    between its two best tokens, which must not exceed the paths'
+    distance on that row (a near tie). The decode attends the whole
+    capacity (ROADMAP C: the decode window is the engine's capacity, as
+    in the JAX package)."""
+    E = rt["engine"]
+    lanes, new = 4, 16
+    prompt = long_prompt(rt, 4200)
+    ecfg = E.EngineConfig(max_batch=lanes, num_blocks=320,
+                          capacity=MIXTRAL_CAPACITY,
+                          max_new_tokens=new, sampling=greedy(rt, new),
+                          use_kernel="auto", decode_horizon=4,
+                          prefill_chunk_size=SWA_CHUNK, prefix_cache=True,
+                          faults=None, kv_dtype="bf16")
+    rows = {"on": None, "kernel": [], "dense": []}
+    routes, restore = route_recorder(rt["layers"])
+    recorded = {}
+    inner = E.sample_logits
+
+    def recording(rng, logits, **kw):
+        if rows["on"] and logits.shape[0] == lanes:   # a decode iteration
+            rows[rows["on"]].append(logits.float().clone())
+        return inner(rng, logits, **kw)
+
+    def make_engine(eager, use_kernel="auto"):
+        rows["on"] = ("kernel" if use_kernel else "dense") if eager else None
+        routes["mode"] = "record" if eager else None
+        if eager:   # this path's expert choices and gates, call by call
+            routes["calls"], routes["gates"] = [], []
+            recorded[rows["on"]] = (routes["calls"], routes["gates"])
+        engine = tick_counting(E)(
+            params, cfg, dataclasses.replace(ecfg, use_kernel=use_kernel),
+            rt["pruning"].make_policy("step"), scorer_params=scorer,
+            _eager_decode=eager)
+        check(engine.use_kernel == bool(use_kernel)
+              and engine.prefix_cache is not None
+              and engine._chunk_supported, "batched_mixtral: engine path")
+        return engine
+
+    def run(engine):
+        res = engine.serve(prompt, lanes)
+        check_result(res, engine)
+        return [res]
+
+    E.sample_logits = recording
+    try:
+        first, report = graphed_vs_eager(ops, make_engine, run,
+                                         "batched_mixtral", calls=1,
+                                         fresh=True)
+        dense = timed_run(ops, make_engine(True, use_kernel=False), run)
+    finally:
+        E.sample_logits = inner
+        rows["on"] = None
+        restore()
+    launches = first["launches"]
+    check(launches["paged_attention_prefill"] > 0, "K1b never launched")
+    check(dense["launches"]["paged_attention_prefill"] == 0,
+          "the dense engine launched K1b")
+    k, d = first["results"][0], dense["results"][0]
+    tk = [t.output_tokens for t in k.traces]
+    td = [t.output_tokens for t in d.traces]
+    # trace i decodes in lane i; the recorded rows are the 4 first tokens
+    # (sampled at once from the prefill's logits) and then one row per
+    # decode iteration: output j is row j of lane i
+    for name, toks in (("kernel", tk), ("dense", td)):
+        for i, t in enumerate(toks):
+            got = [int(rows[name][j][i].argmax()) for j in range(len(t))]
+            check(got == t, f"batched_mixtral: {name} lane {i}'s recorded "
+                  f"logits give {got}, its tokens are {t}")
+    # the decode iterations' routings (T = the lanes; the prefill chunks
+    # route 512 tokens): iteration j (output j) is calls L(j-1)..Lj-1
+    decode = {name: [(c, x) for c, x in zip(*recorded[name])
+                     if c.shape[0] == lanes] for name in recorded}
+    check(len(decode["kernel"]) == len(decode["dense"])
+          == cfg.num_layers * (len(rows["kernel"]) - 1),
+          "batched_mixtral: not one routing per layer and decode iteration")
+    # iteration j's routings per layer and lane: where they differ, and
+    # the dense gate margins; up to the last output (the horizon's later
+    # iterations feed only frozen lanes, whose rows nothing reads)
+    L_, n = cfg.num_layers, max(len(t) for t in tk + td)
+    flips = [torch.stack([route_flips(ck, cd) for (ck, _), (cd, _) in zip(
+        decode["kernel"][L_ * (j - 1):L_ * j],
+        decode["dense"][L_ * (j - 1):L_ * j])])
+        for j in range(1, n)]                                  # [L, lanes]
+    margins = [torch.stack([gate_margin(x, cfg.num_experts_per_tok)
+                            for _, x in decode["dense"][L_ * (j - 1):L_ * j]])
+               for j in range(1, n)]
+    # each lane's rows up to its first parting share one history; a row
+    # whose decode iteration routed any lane otherwise in the two paths
+    # (the lanes share each expert's capacity) differs by an expert's
+    # output, not by rounding: it is counted apart
+    parted_at = [next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                      min(len(a), len(b)) - 1) for a, b in zip(tk, td)]
+    same, rerouted = [], []
+    for i, p in enumerate(parted_at):
+        for j in range(p + 1):
+            diff = (rows["kernel"][j][i] - rows["dense"][j][i]).abs().max()
+            (rerouted if j and bool(flips[j - 1].any()) else same).append(
+                diff.item())
+    amax = max(r.abs().max().item() for r in rows["dense"][:n])
+    out = {"prompt_tokens": len(prompt), "traces": lanes,
+           "chunk": SWA_CHUNK, "window": cfg.sliding_window,
+           "capacity": ecfg.capacity,
+           "cached_tokens": k.metrics.cached_tokens,
+           "total_tokens": [k.total_tokens, d.total_tokens],
+           "num_pruned": [k.num_pruned, d.num_pruned],
+           "statuses_identical": [t.status for t in k.traces]
+           == [t.status for t in d.traces],
+           "tokens_identical": tk == td,
+           "logits_max_abs": amax,
+           "same_history_rows": len(same),
+           "same_history_max_abs_diff": max(same),
+           "same_history_tol": PATHS_LOGIT_TOL * amax,
+           "rerouted_rows": len(rerouted),
+           "rerouted_max_abs_diff": max(rerouted, default=0.0),
+           "routing_flips_per_iteration": [int(f.sum()) for f in flips],
+           "routing_flip_max_margin": max(
+               (m[f].max().item() for f, m in zip(flips, margins)
+                if f.any()), default=None),
+           "wall_s": first["wall_s"], "dense_wall_s": dense["wall_s"],
+           "prefill_s": k.prefill_s, "launches": launches,
+           "dense_launches": dense["launches"],
+           "max_memory_allocated": first["max_memory_allocated"],
+           "graph": report}
+    parts = [(j, i) for i, (a, b) in enumerate(zip(tk, td))
+             for j in range(min(len(a), len(b))) if a[j] != b[j]]
+    out["traces_parted"] = len({i for _, i in parts})
+    if parts:
+        j, i = min(parts)
+        lk, ld = rows["kernel"][j][i], rows["dense"][j][i]
+        top_d, top_k = ld.topk(2), lk.topk(2)
+        before = [(rows["kernel"][c][i] - rows["dense"][c][i]).abs().max()
+                  .item() for c in range(j)]
+        part = {"trace": i, "output_index": j, "kernel_token": tk[i][j],
+                "dense_token": td[i][j],
+                "dense_top2": [top_d.indices.tolist(), top_d.values.tolist()],
+                "kernel_top2": [top_k.indices.tolist(), top_k.values.tolist()],
+                "dense_margin": (top_d.values[0] - top_d.values[1]).item(),
+                "paths_max_abs_diff": (lk - ld).abs().max().item(),
+                "paths_max_abs_diff_before": max(before, default=0.0)}
+        part["near_tie"] = part["dense_margin"] <= part["paths_max_abs_diff"]
+        if j > 0:   # the routings of the decode iteration that gave row j
+            part["routing_flips"] = int(flips[j - 1].sum())
+            part["routing_flips_in_lane"] = int(flips[j - 1][:, i].sum())
+        out["first_parting"] = part
+    emit("batched_mixtral", **out)
+    check(out["statuses_identical"] and k.num_pruned == d.num_pruned,
+          "batched_mixtral: kernel and dense statuses or prunes differ")
+    check(out["same_history_max_abs_diff"] <= out["same_history_tol"],
+          f"batched_mixtral: kernel and dense logits from one history and "
+          f"routing lie {out['same_history_max_abs_diff']} apart, beyond "
+          f"{out['same_history_tol']}")
+    check(not parts or out["first_parting"]["near_tie"],
+          "batched_mixtral: kernel and dense tokens part where the dense "
+          "margin exceeds the paths' logit distance")
+    return out
+
+
+def route_recorder(L):
+    """Wrap ``layers._top_k`` (the MoE router's expert choice). While a
+    mode is set, each call's router gates [T, E] are kept in ``gates``;
+    in mode "record" its chosen experts [T, K] are kept in ``calls``; in
+    mode "replay" the calls of ``replay`` are returned in order, with the
+    weights the caller's own gates give them. Returns (state, a function
+    that undoes the wrap)."""
+    inner = L._top_k
+    state = {"mode": None, "calls": [], "replay": [], "gates": []}
+
+    def top_k(x, k):
+        if state["mode"] is not None:
+            state["gates"].append(x.detach().clone())
+        if state["mode"] == "replay":
+            idx = state["replay"].pop(0)
+            return x.gather(-1, idx), idx
+        vals, idx = inner(x, k)
+        if state["mode"] == "record":
+            state["calls"].append(idx)
+        return vals, idx
+
+    L._top_k = top_k
+    return state, lambda: setattr(L, "_top_k", inner)
+
+
+def route_flips(a, b):
+    """[T] whether the expert sets of two routings [T, K] differ."""
+    return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+
+def gate_margin(gates, k):
+    """[T] the gap between the k-th and (k+1)-th largest router gates:
+    how far a token's routing lies from a tie that would change it."""
+    v = gates.sort(-1, descending=True).values
+    return v[:, k - 1] - v[:, k]
+
+
+def phase_forward_mixtral(rt, ops, cfg, params):
+    """``forward_full(use_kernel=True)`` of mixtral at full width (16
+    layers), B = 1, S = 8192, twice the 4096 window: one windowed K3
+    launch per layer, against the dense forward (its chunked
+    online-softmax attention under the same window).
+
+    Both paths round every activation to bf16 at other places, and a
+    token whose router gates lie within that rounding of a tie takes
+    another expert in the other path (and may take or lose a place in an
+    expert's capacity of 320 per group of 1024): its logits then differ
+    by more than rounding. So the kernel forward is run once more with
+    the dense forward's expert choices replayed (its own gate weights):
+    with the routing fixed, the hidden states part by rounding alone, and
+    the logits are held within 5% of their largest magnitude at every
+    position (``forward_kernel``'s tolerance). That replay also measures
+    rounding's reach on the router: at each layer, twice the largest
+    gate displacement between the replay and the dense forward. A token
+    whose first routing flip in the free kernel forward lies at a dense
+    gate margin (k-th to (k+1)-th gate) within that layer's reach needs
+    no cause but rounding. One beyond it differs from the replay at that
+    layer only through attention to tokens that changed experts earlier,
+    so each such token must have one within its window that flipped at
+    an earlier layer. Later flips of a token follow from its first. The
+    free forwards are held to greedy tokens that agree at 80% of the
+    positions (random weights leave near ties)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    S, K = FORWARD_MIXTRAL_S, cfg.num_experts_per_tok
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    fwd = rt["model"].forward_full
+    V = cfg.vocab_size
+    routes, restore = route_recorder(rt["layers"])
+    try:
+        with torch.no_grad():
+            routes["mode"] = "record"
+            t0 = time.perf_counter()
+            dense = fwd(params, cfg, tokens)["logits"][0, :, :V].float()
+            torch.cuda.synchronize()
+            dense_wall = time.perf_counter() - t0
+            dense_routes, routes["calls"] = routes["calls"], []
+            dense_gates, routes["gates"] = routes["gates"], []
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fwd(params, cfg, tokens, use_kernel=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            got = out["logits"][0, :, :V].float()
+            kernel_routes, routes["gates"] = routes["calls"], []
+            routes.update(mode="replay", replay=list(dense_routes))
+            fixed = fwd(params, cfg, tokens, use_kernel=True)["logits"][
+                0, :, :V].float()
+            fixed_gates = routes["gates"]
+    finally:
+        restore()
+    check(len(dense_routes) == len(kernel_routes) == len(fixed_gates)
+          == cfg.num_layers, "forward_mixtral: not one routing per layer")
+    flips = torch.stack([route_flips(a, b)
+                         for a, b in zip(dense_routes, kernel_routes)])
+    margin = torch.stack([gate_margin(x, K) for x in dense_gates])  # [L, S]
+    reach = torch.stack([2 * (f - d).abs().max()
+                         for f, d in zip(fixed_gates, dense_gates)])  # [L]
+    flipped = flips.any(0)
+    first_at = torch.where(flipped, flips.float().argmax(0), cfg.num_layers)
+    first = first_at[flipped]                         # each token's layer
+    first_margin = margin[first, flipped.nonzero()[:, 0]]
+    beyond = (flipped.nonzero()[:, 0][first_margin > reach[first]]).tolist()
+    W = cfg.sliding_window
+    uncaused = [t for t in beyond
+                if not bool((first_at[max(0, t - W + 1):t]
+                             < first_at[t]).any())]
+    # the flips rounding alone makes: the replay's own top-k at each layer
+    # against the dense routing it was given
+    replay_flips = torch.stack([
+        route_flips(rt["layers"]._top_k(f, K)[1], d)
+        for f, d in zip(fixed_gates, dense_routes)])
+    amax = dense.abs().max().item()
+    row_err = (got - dense).abs().max(dim=-1).values
+    fixed_err = (fixed - dense).abs().max(dim=-1).values
+    agree = (got.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    out = {"shape": f"B=1 S={S} window={cfg.sliding_window} bf16",
+           "launches": launches, "logits_max_abs": amax,
+           "logits_max_abs_err": row_err.max().item(),
+           "logits_median_row_err": row_err.median().item(),
+           "rows_within_5pct": (row_err <= 0.05 * amax).float().mean()
+           .item(),
+           "argmax_agreement": agree,
+           "routing_flip_share": flips.float().mean().item(),
+           "tokens_with_a_flip": flipped.float().mean().item(),
+           "rounding_reach_per_layer": reach.tolist(),
+           "first_flips": int(first.numel()),
+           "first_flip_layers": torch.bincount(
+               first, minlength=cfg.num_layers).tolist(),
+           "first_flip_max_margin": first_margin.max().item()
+           if first.numel() else 0.0,
+           "first_flips_within_reach":
+               int((first_margin <= reach[first]).sum()),
+           "first_flips_beyond_reach": len(beyond),
+           "beyond_reach_without_an_earlier_flip_in_window": len(uncaused),
+           "rounding_only_flip_share": replay_flips.float().mean().item(),
+           "flip_max_margin": margin[flips].max().item()
+           if flips.any() else 0.0,
+           "margin_median": margin.median().item(),
+           "share_within_reach": (margin <= reach[:, None]).float().mean()
+           .item(),
+           "fixed_routing_logits_max_abs_err": fixed_err.max().item(),
+           "fixed_routing_argmax_agreement":
+               (fixed.argmax(-1) == dense.argmax(-1)).float().mean().item(),
+           "aux_loss": out["aux_loss"].item(),
+           "wall_s": wall, "dense_wall_s": dense_wall}
+    emit("forward_mixtral", **out)
+    check(bool(torch.isfinite(got).all()), "K3 swa forward: non-finite logits")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"K3 launched {launches['flash_attention']} times, not once per "
+          f"layer")
+    check(agree >= 0.8, f"K3 swa forward: greedy tokens agree at {agree}")
+    check(out["fixed_routing_logits_max_abs_err"] <= 0.05 * amax,
+          f"K3 swa forward with the dense routing: logits err "
+          f"{out['fixed_routing_logits_max_abs_err']} vs max {amax}")
+    check(not uncaused,
+          f"forward_mixtral: {len(uncaused)} tokens first change experts at "
+          f"a gate margin beyond rounding's reach with no earlier flip in "
+          f"their window")
+    return out
+
+
 def phase_forward_kernel(rt, ops, cfg, params):
     """``forward_full(use_kernel=True)`` at full width, B = 1, S = 1024,
     against the dense forward: one K3 launch per layer. Both round every
@@ -1499,11 +2030,13 @@ def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
 
 
 def time_prefill(pa, kvq, g, H, KVH, hd, bp, kv_dtype="bf16", C=16,
-                 prefix=64):
+                 prefix=64, window=None):
     """K1b (bf16 pool) or K1c prefill (int8/fp8 pool): a chunk of C bf16
-    queries over a ``prefix``-token pooled prefix plus its own K/V; the
-    yardstick is SDPA with a causal mask over K/V gathered (and
-    dequantized) beforehand."""
+    queries over a ``prefix``-token pooled prefix plus its own K/V, under
+    an optional sliding ``window``; the yardstick is SDPA with the same
+    causal (and window) mask over K/V gathered (and dequantized)
+    beforehand. Bytes count the pages that hold a visible slot, the
+    operations the visible (query, key) pairs."""
     import torch.nn.functional as F
     bf, page = torch.bfloat16, 16
     scale = 1.0 / math.sqrt(hd)
@@ -1518,43 +2051,66 @@ def time_prefill(pa, kvq, g, H, KVH, hd, bp, kv_dtype="bf16", C=16,
     vals = torch.cat([pa.gather_kv(vp, bt, vs)[:, :prefix].to(bf), ov], 1)
     kd, vd = (t.transpose(1, 2).contiguous() for t in (keys, vals))
     pos = torch.arange(prefix + C, device="cuda")
-    cmask = pos[None, :] <= prefix + torch.arange(C, device="cuda")[:, None]
+    q_pos = prefix + torch.arange(C, device="cuda")[:, None]
+    cmask = pos[None, :] <= q_pos
+    if window is not None:
+        cmask &= pos[None, :] > q_pos - window
     qd = q.transpose(1, 2)
-    pages = -(-prefix // page)
+    first = 0 if window is None else max(0, prefix - window + 1)
+    pages = max(0, -(-prefix // page) - first // page)
     slot_bytes = hd + 4 if quant else 2 * hd
-    visible = sum(prefix + c + 1 for c in range(C))
+    visible = int(cmask.sum())
     return dict(
         ms=time_cuda(lambda: pa.paged_attention_prefill(
-            q, kp, vp, bt, pl, nv, ok, ov, scale=scale, k_scale=ks,
-            v_scale=vs)),
+            q, kp, vp, bt, pl, nv, ok, ov, scale=scale, window=window,
+            k_scale=ks, v_scale=vs)),
         plain_ms=time_cuda(lambda: pa.paged_attention_prefill_plain(
-            q, kp, vp, bt, pl, nv, ok, ov, scale, None, ks, vs)),
+            q, kp, vp, bt, pl, nv, ok, ov, scale, window, ks, vs)),
         library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=cmask, scale=scale, enable_gqa=True)),
         library="SDPA, masked, over K/V gathered"
                 + (" and dequantized" if quant else "") + " beforehand",
-        shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} bf16 q, "
-              f"{kv_dtype} pool",
+        shape=f"B=1 C={C} H={H} KVH={KVH} hd={hd} prefix={prefix} "
+              f"window={window} bf16 q, {kv_dtype} pool",
         bytes=(2 * q.numel() * 2 + 2 * ok.numel() * 2 + bt.numel() * 4 + 8
                + 2 * pages * page * KVH * slot_bytes),
         flops=4 * hd * H * visible, dtype=bf)
 
 
-def time_flash(fa, g, H, hd, dtype, S=2048):
-    """K3, B = 1, causal, against SDPA with ``is_causal``."""
+def time_flash(fa, g, H, hd, dtype, S=2048, window=None):
+    """K3, B = 1, causal (under an optional sliding ``window``), against
+    SDPA with ``is_causal`` (with the window: SDPA with the same boolean
+    mask). Operations count the visible (query, key) pairs: S(S+1)/2
+    causal, S*W - W(W-1)/2 under a window W <= S."""
     import torch.nn.functional as F
     qf, kf, vf = (torch.randn(1, H, S, hd, generator=g, device="cuda")
                   .to(dtype) for _ in range(3))
+    if window is None:
+        visible = S * (S + 1) // 2
+
+        def library():
+            return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
+    else:
+        visible = S * window - window * (window - 1) // 2
+        mask = fa.attention_mask(S, True, window, "cuda")
+
+        def library():
+            return F.scaled_dot_product_attention(qf, kf, vf,
+                                                  attn_mask=mask)
     return dict(
-        ms=time_cuda(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
-        plain_ms=time_cuda(lambda: fa.flash_attention_plain(qf, kf, vf,
-                                                            True)),
-        library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
-            qf, kf, vf, is_causal=True)),
-        library="SDPA, is_causal",
-        shape=f"B=1 H={H} S={S} hd={hd} causal {str(dtype)[6:]}",
+        ms=time_cuda(lambda: fa.flash_attention(qf, kf, vf, causal=True,
+                                                window=window)),
+        plain_ms=time_cuda(
+            (lambda: fa.flash_attention_plain(qf, kf, vf, True, window))
+            if S <= 2048 else
+            (lambda: flash_plain_by_heads(fa, qf, kf, vf, window))),
+        library_ms=time_cuda(library),
+        library="SDPA, is_causal" if window is None
+                else "SDPA, causal and window mask",
+        shape=f"B=1 H={H} S={S} hd={hd} causal window={window} "
+              f"{str(dtype)[6:]}",
         bytes=4 * qf.numel() * qf.element_size(),
-        flops=4 * hd * H * S * (S + 1) // 2, dtype=dtype)
+        flops=4 * hd * H * visible, dtype=dtype)
 
 
 def time_ssd(sd, g, N):
@@ -1648,6 +2204,20 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     rows["flash_attention_hd80_f32"] = time_flash(fa, g, 32, 80,
                                                   torch.float32)
     torch.cuda.empty_cache()
+    # mixtral-8x7b's windowed paths: K3 at forward_mixtral's S = 8192
+    # under the 4096 window, and K1b at a 512-token chunk over a 4608-token
+    # prefix (the window's edge 513-1024 slots in)
+    rows["flash_attention_swa"] = time_flash(fa, g, 32, 128, bf, S=8192,
+                                             window=SWA_WINDOW)
+    torch.cuda.empty_cache()
+    rows["paged_attention_prefill_swa"] = time_prefill(
+        pa, kvq, g, 32, 8, 128, 4608 // 16 + 1, C=SWA_CHUNK, prefix=4608,
+        window=SWA_WINDOW)
+    # K1a at batched_mixtral's decode: 4 lanes of 4201-4216 slots over
+    # 288-page rows, 9 parts per lane merged
+    rows["paged_attention_decode_mixtral"] = time_decode(
+        pa, kvq, g, 4, 32, 8, 128, MIXTRAL_BP, list(MIXTRAL_LENS))
+    torch.cuda.empty_cache()
 
     # K2 at the decode batch: 16 lanes, D = 2560, bf16 hidden
     D, Hd = 2560, 512
@@ -1664,6 +2234,17 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
         shape=f"B={B} D={D} hidden={Hd} bf16 hidden, f32 weights",
         bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
         flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
+    # mixtral-8x7b's D = 4096 at the serve's 16 lanes
+    D4 = 4096
+    h4 = torch.randn(B, D4, generator=g, device="cuda").to(bf)
+    w14 = torch.randn(D4, Hd, generator=g, device="cuda") * (2.0 / D4) ** .5
+    rows["step_score_d4096"] = dict(
+        ms=time_cuda(lambda: ss.step_score(h4, w14, b1, w2, b2)),
+        plain_ms=time_cuda(lambda: ss.step_score_plain(h4, w14, b1, w2, b2)),
+        library_ms=None,
+        shape=f"B={B} D={D4} hidden={Hd} bf16 hidden, f32 weights",
+        bytes=h4.numel() * 2 + (w14.numel() + 2 * Hd + 1 + B) * 4,
+        flops=2 * B * D4 * Hd + 4 * B * Hd, dtype=torch.float32)
     # the same at the kernels phase's 64 lanes (this line only)
     h64 = torch.randn(64, D, generator=g, device="cuda").to(bf)
     rows["step_score_b64"] = dict(
@@ -1690,15 +2271,21 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     return rows
 
 
-DENSE_ARCHS = ("qwen3-1.7b", "starcoder2-3b", "phi4-mini-3.8b",
-               "granite-20b")
+DENSE_ARCHS = ("qwen3-1.7b", "internvl2-2b", "starcoder2-3b",
+               "phi4-mini-3.8b", "granite-20b")
+# mixtral-8x7b's depth on one 80 GB card (its 32 layers take 93 GB)
+MIXTRAL_LAYERS = 16
+# a prompt longer than the smoke window (8) of reference_mixtral
+WINDOW_PROMPT = "12+34-5=41;6+7=13;8-2+9="
 
 
 def phase_dense_archs(rt, ops):
-    """The four dense GQA archs beside qwen3-4b-thinking at full width
-    (random seeded weights), one at a time, each freed before the next
-    (granite-20b, 28 B params and 56 GB in bf16, last): a graphed STEP
-    serve of 1 request x 8 traces, greedy, 32 new tokens, kernels on,
+    """The four dense GQA archs beside qwen3-4b-thinking and the vlm
+    internvl2-2b (served as text, as both packages' engines serve it) at
+    full width (random seeded weights), one at a time, each freed before
+    the next (granite-20b, 28 B params and 56 GB in bf16, last): a
+    graphed STEP serve of 1 request x 8 traces, greedy, 32 new tokens,
+    kernels on,
     against the eager kernel engine (identical tokens, statuses, prunes,
     bitwise step scores); then the kernel engine against the dense
     engine at the arch's smoke config, as ``reference`` does for qwen3."""
@@ -1811,7 +2398,8 @@ def main() -> int:
              "arithmetic": "data.arithmetic", "model": "models.model",
              "kv_quant": "models.kv_quant", "trainer": "training.trainer",
              "optimizer": "training.optimizer", "tree": "training.tree",
-             "dataset": "data.dataset", "pipeline": "core.pipeline"}
+             "dataset": "data.dataset", "pipeline": "core.pipeline",
+             "layers": "models.layers", "ops": "kernels.ops"}
     rt = {k: importlib.import_module(f"repro_torch.{v}")
           for k, v in names.items()}
     from repro_torch.kernels import flash_attention as fa
@@ -1872,6 +2460,23 @@ def main() -> int:
     serve_hyb, forward_hyb = recurrent["zamba2"]
     dense = phase_dense_archs(rt, ops)
 
+    # mixtral-8x7b at full width, 16 of its 32 layers (47 GB of bf16
+    # weights; all 32 would take 93 GB)
+    xcfg, xparams, xscorer, n_params, init_s = full_model(
+        rt, "mixtral-8x7b", layers=MIXTRAL_LAYERS)
+    emit("model", name=xcfg.name, layers=xcfg.num_layers,
+         d_model=xcfg.d_model, params=n_params, init_s=init_s)
+    serve_moe = phase_serve(rt, ops, xcfg, xparams, xscorer,
+                            name="serve_mixtral")
+    phase_smoke_reference(rt, arch="mixtral-8x7b", window=8, chunk=4,
+                          prompt=WINDOW_PROMPT)
+    batched_moe = phase_batched_mixtral(rt, ops, xcfg, xparams, xscorer)
+    forward_moe = phase_forward_mixtral(rt, ops, xcfg, xparams)
+    phase_step(rt, xcfg, xparams, "step_mixtral")
+    del xparams, xscorer
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"
     paged = (src + "paged_attention.cu",
@@ -1891,6 +2496,24 @@ def main() -> int:
                        + batched["launches"]["step_score"]
                        + serve_ssm["launches"]["step_score"]
                        + serve_hyb["launches"]["step_score"]),
+        # mixtral-8x7b's decode (timed and checked at batched_mixtral's
+        # 288-page rows), windowed paths and width
+        "paged_attention_decode_mixtral": (
+            *paged, "decode_mixtral_bfloat16",
+            serve_moe["launches"]["paged_attention_decode"]
+            + batched_moe["launches"]["paged_attention_decode"]),
+        "paged_attention_prefill_swa": (
+            *paged, "prefill_swa_bfloat16",
+            batched_moe["launches"]["paged_attention_prefill"]),
+        "flash_attention_swa": (src + "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:38",
+                                "flash_swa_bfloat16",
+                                forward_moe["launches"]["flash_attention"]),
+        "step_score_d4096": (src + "step_score.cu",
+                             "src/repro/kernels/step_score.py:30",
+                             "score_d4096_bfloat16",
+                             serve_moe["launches"]["step_score"]
+                             + batched_moe["launches"]["step_score"]),
         "flash_attention": (src + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:38",
                             "flash_bfloat16",

@@ -26,13 +26,16 @@ _ARCH_MODULES: Dict[str, str] = {
     "granite-20b": "repro_torch.configs.granite_20b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    # The vlm: the dense stack, whose forward takes the vision embeddings
+    # of a stub frontend in place of the first prompt embeddings.
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    # MoE (8 experts, top 2, capacity dispatch) over sliding-window
+    # attention.
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 # Archs of the JAX package not ported yet (ROADMAP A9: the arch zoo).
-_NOT_PORTED = (
-    "internvl2-2b", "mixtral-8x7b", "deepseek-v2-236b",
-    "seamless-m4t-large-v2",
-)
+_NOT_PORTED = ("deepseek-v2-236b", "seamless-m4t-large-v2")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -1,5 +1,5 @@
-"""Parameter initialization for the ported architectures (dense, ssm,
-hybrid).
+"""Parameter initialization for the ported architectures (dense, MoE,
+vlm, ssm, hybrid).
 
 Layer params are STACKED along a leading [num_layers] axis, in the JAX
 package's names and layouts (``wq [L, D, H*hd]``, ``embed [Vp, D]``); the
@@ -19,8 +19,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import check_ported
 
 DTYPE = torch.bfloat16
-# A stacked weight of more elements than this (granite-20b's MLP: 7.9e9)
-# is drawn one leading slice at a time, so that its f32 draw never holds
+# A stacked weight of more elements than this (granite-20b's MLP: 7.9e9;
+# mixtral-8x7b's experts: 1.5e10 at 32 layers) is drawn one leading slice
+# (layer) at a time, so that its f32 draw never holds
 # more than a slice (a whole one would take 31 GB beside the params).
 # Slice-wise draws need not give the numbers of one whole draw, so the
 # threshold keeps every smaller weight, and the seeded scenarios built on
@@ -34,8 +35,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random params of a dense, ssm or hybrid stack on ``generator``'s
-    device."""
+    """Random params of a dense (MoE, vlm), ssm or hybrid stack on
+    ``generator``'s device."""
     check_ported(cfg)
     dev = generator.device
 
@@ -81,7 +82,7 @@ def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
     """Decoder layers stacked over ``stack`` (``(L,)``, or ``()`` for the
     hybrid's one shared block); the output scales count all
     ``num_layers``, as the JAX package's do."""
-    D, F = cfg.d_model, cfg.d_ff
+    D = cfg.d_model
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     depth = math.sqrt(2 * max(cfg.num_layers, 1))
     attn = {
@@ -94,17 +95,43 @@ def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = ones(*stack, hd)
         attn["k_norm"] = ones(*stack, hd)
+    layer = {"ln1": ones(*stack, D), "attn": attn, "ln2": ones(*stack, D)}
+    if cfg.uses_moe:
+        layer["moe"] = _moe_params(cfg, dense, stack)
+    else:
+        layer["mlp"] = _mlp_params(cfg, dense, stack, cfg.d_ff)
+    return layer
+
+
+def _mlp_params(cfg: ModelConfig, dense, stack: tuple, F: int) -> dict:
+    D = cfg.d_model
+    depth = math.sqrt(2 * max(cfg.num_layers, 1))
     return {
-        "ln1": ones(*stack, D),
-        "attn": attn,
-        "ln2": ones(*stack, D),
-        "mlp": {
-            "w_gate": dense(D, *stack, D, F),
-            "w_up": dense(D, *stack, D, F),
-            "w_down": dense(F, *stack, F, D,
-                            scale=1.0 / math.sqrt(F) / depth),
+        "w_gate": dense(D, *stack, D, F),
+        "w_up": dense(D, *stack, D, F),
+        "w_down": dense(F, *stack, F, D, scale=1.0 / math.sqrt(F) / depth),
+    }
+
+
+def _moe_params(cfg: ModelConfig, dense, stack: tuple) -> dict:
+    """``repro/models/init.py::_moe_params``: the router [D, E], the
+    experts' SwiGLU stacked over E (``w_gate``/``w_up`` [E, D, F],
+    ``w_down`` [E, F, D]) and, with shared experts, one SwiGLU of width
+    ``F * num_shared_experts``."""
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    down = 1.0 / math.sqrt(F) / math.sqrt(2 * cfg.num_layers)
+    p = {
+        "router": dense(D, *stack, D, E),
+        "experts": {
+            "w_gate": dense(D, *stack, E, D, F),
+            "w_up": dense(D, *stack, E, D, F),
+            "w_down": dense(F, *stack, E, F, D, scale=down),
         },
     }
+    if cfg.num_shared_experts:
+        p["shared"] = _mlp_params(cfg, dense, stack,
+                                  F * cfg.num_shared_experts)
+    return p
 
 
 def _mamba_params(cfg: ModelConfig, dense, dev, stack: tuple) -> dict:

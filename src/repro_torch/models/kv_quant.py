@@ -118,8 +118,8 @@ def write_slots(pool: torch.Tensor, scale: Optional[torch.Tensor], idx,
 def resolve_kv_dtype(setting: str, cfg: ModelConfig,
                      chunk_supported: bool) -> str:
     """Validate a ``kv_dtype`` setting against the architecture: the
-    quantized pools cover the dense-GQA paged-attention stack (the family
-    chunked prefill serves), as in the JAX package."""
+    quantized pools cover the GQA paged-attention stack (the family
+    chunked prefill serves: dense, MoE and vlm), as in the JAX package."""
     if setting not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {setting!r}; expected one of {KV_DTYPES}")

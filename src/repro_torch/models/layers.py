@@ -1,5 +1,6 @@
-"""Primitive layers of the dense stack (plain functions on tensors, params
-as dicts of tensors), ported from ``repro/models/layers.py``.
+"""Primitive layers of the dense, MoE, ssm and hybrid stacks (plain
+functions on tensors, params as dicts of tensors), ported from
+``repro/models/layers.py``.
 
 All matmul weights are 2-D ``[in, out]`` as in the JAX package. Norms,
 softmax and attention accumulate in f32; weights and activations are
@@ -17,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -69,6 +71,129 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     act = F.silu(g.float()).to(x.dtype) * u
     return act @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k router, capacity-based dispatch/combine)
+# ---------------------------------------------------------------------------
+
+# Above this many tokens the groups run a chunk of groups at a time, which
+# bounds the live [groups, E, C, *] dispatch buffers (the same numbers).
+MOE_CHUNK_TOKENS = 524288
+
+
+def _moe_group_size(T: int, E: int) -> int:
+    """GShard-style dispatch group size: the largest divisor of ``T`` that
+    is at most 1024 (256 from 32 experts on)."""
+    target = 256 if E >= 32 else 1024
+    gs = min(T, target)
+    while T % gs:
+        gs -= 1
+    return gs
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``idx [...] -> [..., n]``; an index outside [0, n) gives a zero row.
+    A comparison with ``arange(n)``: ``F.one_hot`` reads the device to
+    check its range, which a captured decode horizon must not."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest along the last axis, ties to the lower index (as
+    ``jax.lax.top_k``): a stable descending sort keeps equal values in
+    index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_queue(sel: torch.Tensor, E: int, capacity: int):
+    """Expert choices ``sel [G, gs, K]`` -> (their one-hots [G, gs, K, E]
+    int32, each (token, k)'s place in its expert's queue [G, gs, K], and
+    whether it is kept [G, gs, K]). The queue fills in the flattened
+    ``gs * K`` order; a pair at ``capacity`` or past it is dropped."""
+    G, gs, K = sel.shape
+    sel_oh = _one_hot(sel, E, torch.int32)
+    flat = sel_oh.reshape(G, gs * K, E)
+    pos = ((flat.cumsum(dim=1) - flat).reshape(G, gs, K, E)
+           * sel_oh).sum(dim=-1)
+    return sel_oh, pos, pos < capacity
+
+
+def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
+                w: torch.Tensor, E: int, capacity: int) -> torch.Tensor:
+    """Dispatch, expert SwiGLU and combine for groups ``xg [G, gs, D]``
+    with their choices ``sel``/``w [G, gs, K]`` (:func:`moe_queue` drops
+    the pairs past ``capacity``). Returns [G, gs, D]."""
+    G, gs, K = sel.shape
+    D = xg.shape[-1]
+    sel_oh, pos, keep = moe_queue(sel, E, capacity)
+    disp = (sel_oh.bool() & keep[..., None]).to(xg.dtype)   # [G, gs, K, E]
+    pos_oh = _one_hot(torch.where(keep, pos, capacity), capacity, xg.dtype)
+    dispatch = torch.einsum("gtke,gtkc->gtec", disp, pos_oh)
+    combine = torch.einsum("gtke,gtkc->gtec",
+                           disp * w.to(xg.dtype)[..., None], pos_oh)
+    # [G, E*C, gs] @ [G, gs, D]: each slot holds its token's x (or zeros)
+    ex_in = dispatch.reshape(G, gs, E * capacity).transpose(1, 2) @ xg
+    xe = ex_in.reshape(G, E, capacity, D).transpose(0, 1) \
+        .reshape(E, G * capacity, D)
+    act = F.silu((xe @ pe["w_gate"]).float()).to(xg.dtype) \
+        * (xe @ pe["w_up"])
+    ex_out = (act @ pe["w_down"]).reshape(E, G, capacity, D).transpose(0, 1)
+    return combine.reshape(G, gs, E * capacity) \
+        @ ex_out.reshape(G, E * capacity, D)
+
+
+def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              capacity_factor: Optional[float] = None):
+    """Top-k MoE with optional shared experts and group-wise capacity
+    dispatch (GShard/Switch semantics), as ``repro/models/layers.py``.
+
+    p: {router [D, E], experts {w_gate [E, D, F], w_up [E, D, F],
+    w_down [E, F, D]}, (optional) shared {w_gate, w_up, w_down}};
+    x [B, S, D]. The router's softmax is f32; the top-k weights are
+    renormalised. The B*S tokens fall in groups of
+    :func:`_moe_group_size`, each expert taking at most ``capacity =
+    max(1, int(cf * gs * K / E))`` of a group's (token, k) pairs in
+    order: a dropped pair adds nothing (a token that loses both gets no
+    MoE output). Every shape is static, so the layer captures in a CUDA
+    graph. Returns (out [B, S, D], the Switch load-balancing aux loss)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = B * S
+    xt = x.reshape(T, D)
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+
+    gates = torch.softmax((xt @ p["router"]).float(), dim=-1)
+    weights, sel = _top_k(gates, K)                          # [T, K]
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-9)
+    # load-balancing aux loss (Switch-style)
+    me = gates.mean(dim=0)
+    ce = _one_hot(sel, E, torch.float32).sum(dim=1).mean(dim=0)
+    aux_loss = E * (me * ce).sum()
+
+    gs = _moe_group_size(T, E)
+    G = T // gs
+    capacity = max(1, int(capacity_factor * gs * K / E))
+    args = (xt.reshape(G, gs, D), sel.reshape(G, gs, K),
+            weights.reshape(G, gs, K))
+    chunk_groups = max(1, (MOE_CHUNK_TOKENS + gs - 1) // gs)
+    if G > chunk_groups:
+        while G % chunk_groups:
+            chunk_groups -= 1
+        # recomputed in the backward pass, as the JAX package's chunk scan
+        out = torch.cat([
+            checkpoint(_moe_groups, p["experts"],
+                       *(a[i:i + chunk_groups] for a in args), E, capacity,
+                       use_reentrant=False)
+            for i in range(0, G, chunk_groups)])
+    else:
+        out = _moe_groups(p["experts"], *args, E, capacity)
+    out = out.reshape(T, D)
+    if cfg.num_shared_experts:
+        out = out + swiglu(p["shared"], xt)
+    return out.reshape(B, S, D), aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +342,9 @@ def paged_kv_update(pool: torch.Tensor, block_tables: torch.Tensor,
     Frozen decode lanes all point at the scratch block, so several lanes
     may write the same scratch slot; which lane's value lands there is
     nondeterministic on CUDA. That is harmless where only frozen lanes
-    read it and nothing of theirs persists; the hybrid passes each
-    lane's :func:`last_writer` to :func:`gqa_attention_decode` instead.
+    read it and nothing of theirs persists; the hybrid and the MoE stacks
+    pass each lane's :func:`last_writer` to :func:`gqa_attention_decode`
+    instead.
     """
     paged_kv_update_quant(pool, None, block_tables, slot_positions, new_kv)
 
@@ -231,8 +357,10 @@ def last_writer(block_tables: torch.Tensor, positions: torch.Tensor,
     slots; a CPU scatter keeps the last lane's value, a CUDA one any
     lane's. The hybrid's frozen lanes read those slots back unmasked and
     carry what they read into their recurrent state (ROADMAP C, the
-    horizon drift), so it writes every shared slot with its last lane's
-    value: the same result on both devices, and the same in every run."""
+    horizon drift), and an MoE's frozen lanes take expert capacity from
+    the live lanes by what they read, so both write every shared slot
+    with its last lane's value: the same result on both devices, and the
+    same in every run."""
     slot = positions % window_len if window_len > 0 else positions
     block = block_tables.long().gather(1, (slot // bs).long()[:, None])[:, 0]
     target = block * bs + slot % bs

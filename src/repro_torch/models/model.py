@@ -1,6 +1,8 @@
-"""Forward passes of the dense GQA stack, the ssm (Mamba2) stack and the
-hybrid (zamba2: groups of Mamba2 layers, each followed by one shared
-attention block), ported from ``repro/models/model.py``.
+"""Forward passes of the dense GQA stack (with the MoE feed-forward of
+``moe`` archs, and the vision embeddings of ``vlm`` archs), the ssm
+(Mamba2) stack and the hybrid (zamba2: groups of Mamba2 layers, each
+followed by one shared attention block), ported from
+``repro/models/model.py``.
 
   forward_full(...)       — full-sequence forward (one-shot prefill and
                             training; ``use_kernel`` runs its attention
@@ -45,19 +47,20 @@ POOL_KEYS = ("k_pool", "v_pool", "k_scale", "v_scale")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The stacks the port runs: dense GQA, the ssm (Mamba2) stack and
-    the hybrid. MoE, MLA and encoder-decoder archs are ROADMAP A9."""
-    if cfg.arch_type not in ("dense", "ssm", "hybrid") or cfg.use_mla \
-            or cfg.is_encoder_decoder or cfg.uses_moe:
+    """The stacks the port runs: dense GQA (with MoE layers for ``moe``,
+    taking vision embeddings for ``vlm``), the ssm (Mamba2) stack and
+    the hybrid. MLA and encoder-decoder archs are ROADMAP A9."""
+    if cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid") \
+            or cfg.use_mla or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"repro_torch does not run {cfg.arch_type!r} stacks yet "
-            f"(MoE, MLA and enc-dec are ROADMAP A9)")
+            f"repro_torch does not run {cfg.arch_type!r} stacks with "
+            f"use_mla={cfg.use_mla} yet (MLA and enc-dec are ROADMAP A9)")
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """Chunked prefill is the dense paged-attention stack's."""
+    """Chunked prefill is the paged-attention stack's (dense, MoE, vlm)."""
     check_ported(cfg)
-    if cfg.arch_type != "dense":
+    if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill covers the dense GQA stack, not "
             f"{cfg.arch_type!r} (as in the JAX package)")
@@ -91,43 +94,61 @@ def _logits(params, cfg, h):
     return h @ params["lm_head"]
 
 
+def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor):
+    """A decoder layer's feed-forward: (the MoE's output and aux loss), or
+    (the SwiGLU's output, None)."""
+    if cfg.uses_moe:
+        return L.moe_layer(lp["moe"], cfg, x)
+    return L.swiglu(lp["mlp"], x), None
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (one-shot prefill)
 # ---------------------------------------------------------------------------
 
 def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                    return_kv: bool, use_kernel: bool):
+                    return_kv: bool, use_kernel: bool,
+                    modality_embeds: Optional[torch.Tensor] = None):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
-    kvs or None)."""
+    kvs or None, the summed aux loss of the MoE layers: f32, 0 without
+    them)."""
     check_ported(cfg)
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.modality == "vision" and modality_embeds is not None:
+        # the stub frontend's embeddings replace the first n positions'
+        n = modality_embeds.shape[1]
+        h = torch.cat([modality_embeds.to(h.dtype), h[:, n:]], dim=1)
     if cfg.arch_type == "ssm":
         h, kvs = _ssm_stack_full(params["layers"], cfg.num_layers, cfg, h,
                                  return_kv, use_kernel)
-        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs
+        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if cfg.arch_type == "hybrid":
         h, kvs = _hybrid_stack_full(params, cfg, h, positions, return_kv,
                                     use_kernel)
-        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs
+        return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     ks, vs = [], []
     for l in range(cfg.num_layers):
-        h, kv = _attn_block_full(_layer(params, l), cfg, h, positions,
-                                 return_kv, use_kernel)
+        h, kv, aux_l = _attn_block_full(_layer(params, l), cfg, h,
+                                        positions, return_kv, use_kernel)
+        if aux_l is not None:
+            aux = aux + aux_l
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
-    return hidden, kvs
+    return hidden, kvs, aux
 
 
 def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, return_kv: bool,
                      use_kernel: bool):
-    """One decoder layer (``ln1`` -> GQA -> residual, ``ln2`` -> SwiGLU ->
-    residual) over a full sequence: (h, (k, v) or None)."""
+    """One decoder layer (``ln1`` -> GQA -> residual, ``ln2`` -> SwiGLU
+    or MoE -> residual) over a full sequence: (h, (k, v) or None, the
+    MoE's aux loss or None)."""
     a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     kv = None
     if return_kv:
@@ -139,8 +160,8 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                                  window=cfg.sliding_window,
                                  use_kernel=use_kernel)
     h = h + a
-    h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
-    return h, kv
+    m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h + m, kv, aux
 
 
 def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -156,8 +177,8 @@ def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
     for g in range(G):
         h, st = _ssm_stack_full(_index(params["layers"], g), per, cfg, h,
                                 return_kv, use_kernel)
-        h, kv = _attn_block_full(sa, cfg, h, positions, return_kv,
-                                 use_kernel)
+        h, kv, _ = _attn_block_full(sa, cfg, h, positions, return_kv,
+                                    use_kernel)
         if return_kv:
             states.append(st)
             ks.append(kv[0])
@@ -192,7 +213,8 @@ def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
 
 
 def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 return_kv: bool = False, use_kernel: bool = False) -> dict:
+                 return_kv: bool = False, use_kernel: bool = False,
+                 modality_embeds: Optional[torch.Tensor] = None) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
     stack, (ssm_state [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N])
@@ -200,12 +222,15 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (k, v) each [G, B, S, KVH, hd]) for the hybrid. ``use_kernel`` runs
     each attention layer through the flash-attention wrapper, and each
     Mamba2 layer's scan through the SSD scan wrapper (forward only:
-    neither has a backward)."""
-    hidden, kvs = _forward_hidden(params, cfg, tokens, return_kv,
-                                  use_kernel)
+    neither has a backward). Attention is causal within
+    ``cfg.sliding_window``. ``modality_embeds`` [B, n, D] (a ``vision``
+    arch's stub frontend) replace the first n token embeddings.
+    ``aux_loss`` is the sum of the MoE layers' load-balancing losses (f32
+    0 without MoE)."""
+    hidden, kvs, aux = _forward_hidden(params, cfg, tokens, return_kv,
+                                       use_kernel, modality_embeds)
     out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
-           "aux_loss": torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)}
+           "aux_loss": aux}
     if return_kv:
         out["kvs"] = kvs
     return out
@@ -247,9 +272,18 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             h = _attn_decode(params["shared_attn"], cfg, h, positions,
                              cache, g, window_len, use_kernel, writer)
     else:
+        # frozen lanes read the scratch block back, and an MoE routes them
+        # beside the live lanes, whose expert capacity they share: their
+        # shared scratch slots take the last lane's K/V, as for the hybrid.
+        # A dense stack's frozen lanes reach no live lane (their outputs
+        # are dropped), so it keeps the CUDA scatter's choice of writer
+        # and spares two gathers per layer
+        writer = (L.last_writer(cache["block_tables"], positions, window_len,
+                                cfg.kv_block_size)
+                  if cfg.uses_moe else None)
         for l in range(cfg.num_layers):
             h = _attn_decode(_layer(params, l), cfg, h, positions, cache, l,
-                             window_len, use_kernel)
+                             window_len, use_kernel, writer)
     hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
     return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
             "cache": dict(cache)}
@@ -283,7 +317,7 @@ def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
         lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
         layer_cache, writer=writer)
     h = h + a
-    return h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +392,8 @@ def multi_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked prefill covers the paged-attention dense stack."""
+    """Chunked prefill covers the paged-attention dense stack (MoE and
+    vlm included)."""
     return (cfg.arch_type not in ("ssm", "hybrid")
             and not cfg.use_mla and not cfg.is_encoder_decoder)
 
@@ -371,8 +406,10 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     tokens [B, C] (right-padded to the chunk width); positions [B, C]
     absolute prompt positions; valid [B, C] marks real tokens. Earlier
-    chunks' KV must already be in the pool. Returns {logits [B, C, Vp],
-    hidden, cache}."""
+    chunks' KV must already be in the pool. The chunk attends within
+    ``cfg.sliding_window``; an MoE layer routes all B*C slots, the
+    padded ones too (they take expert capacity, as in the JAX package).
+    Returns {logits [B, C, Vp], hidden, cache}."""
     _check_dense(cfg)
     quant = "k_scale" in cache  # int8/fp8 pool
     h = _embed(params, cfg, tokens)  # [B, C, D]
@@ -386,7 +423,7 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             k_scale=cache["k_scale"][l] if quant else None,
             v_scale=cache["v_scale"][l] if quant else None)
         h = h + a
-        h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
             "cache": dict(cache)}
@@ -533,18 +570,22 @@ def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+            labels: torch.Tensor, aux_weight: float = 0.01,
+            use_kernel: bool = False,
+            modality_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token NLL over the labels inside [0, vocab_size) (the
-    others are masked). tokens/labels [B, S]. Neither ported stack has an
-    auxiliary loss (the JAX package adds its zero ``aux_loss``)."""
-    hidden, _ = _forward_hidden(params, cfg, tokens, False, use_kernel)
+    others are masked), plus ``aux_weight`` times the MoE layers' summed
+    load-balancing loss (0 without MoE). tokens/labels [B, S]."""
+    hidden, _, aux = _forward_hidden(params, cfg, tokens, False, use_kernel,
+                                     modality_embeds)
     valid = (labels >= 0) & (labels < cfg.vocab_size)
     n = valid.sum().clamp(min=1)
     if tokens.shape[1] > CHUNKED_CE_THRESHOLD:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return _chunked_ce(hidden, w, labels, valid, CE_CHUNK) / n
+        return _chunked_ce(hidden, w, labels, valid, CE_CHUNK) / n \
+            + aux_weight * aux
     logits = _logits(params, cfg, hidden).float()
     logp = F.log_softmax(logits, dim=-1)
     safe = torch.where(valid, labels, 0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / n
+    return (nll * valid).sum() / n + aux_weight * aux

@@ -27,7 +27,8 @@ What differs is the device side:
     a paged pool for its shared-attention invocations and the per-slot
     state of its Mamba2 layers. Like the JAX engine, both fall back to
     one-shot prefill, switch the prefix cache off, and refuse an
-    int8/fp8 pool;
+    int8/fp8 pool. The MoE (mixtral) and vlm (internvl2, served as
+    text) stacks serve as the dense one does;
   * the engine RNG is a ``torch.Generator`` on the engine's device;
   * on a CUDA engine each ``(horizon, lanewise)`` decode horizon is one
     device call, as the JAX engine's jitted horizon is: a CUDA graph,

@@ -20,6 +20,7 @@ the Pallas kernel to the sequential recurrence (the chunked form
 exponentiates cumsum differences instead of multiplying per-step decays;
 outputs reach ~5e2 at full width).
 """
+import dataclasses
 import math
 
 import pytest
@@ -111,10 +112,12 @@ def _scorer_inputs(g, B, D, Hd, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,D", [(1, 256), (13, 256), (64, 2560), (16, 2560),
-                                 (130, 1000)])
+                                 (130, 1000), (16, 4096), (4, 4096)])
 def test_step_score_kernel_matches_plain(gen, dtype, B, D):
     """(16, 2560) is the serve batch; (130, 1000) has a D that no slice
-    of 64 rows divides and lanes across a tile edge."""
+    of 64 rows divides and lanes across a tile edge; D = 4096 is
+    mixtral-8x7b's width at the serve's 16 lanes and the batched
+    phase's 4."""
     args = _scorer_inputs(gen, B, D, 512, dtype)
     got = ss.step_score(*args)
     torch.testing.assert_close(got, ss.step_score_plain(*args),
@@ -685,7 +688,8 @@ def _graph_serve(arch, params, scorer, eager, sampled, faults=None):
 
 @pytest.mark.parametrize("sampled", [False, True])
 @pytest.mark.parametrize("arch", ["qwen3-4b-thinking", "mamba2-2.7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "mixtral-8x7b",
+                                  "internvl2-2b"])
 def test_graphed_engine_matches_eager_engine(gen, arch, sampled):
     """The smoke config on the card, f32 params without EOS (so greedy
     traces fill the pool and STEP prunes), STEP: one replay per tick,
@@ -708,7 +712,7 @@ def test_graphed_engine_matches_eager_engine(gen, arch, sampled):
     assert {k: g_counts[k] for k in kernels} == \
         {k: e_counts[k] for k in kernels}
     assert g_counts["step_score"] > 0
-    if arch != "qwen3-4b-thinking":
+    if cfg.arch_type in ("ssm", "hybrid"):
         assert g_counts["ssm_decode"] == \
             g_counts["step_score"] * cfg.num_layers
     if arch == "zamba2-2.7b":   # one decode per shared-attention invocation
@@ -859,6 +863,42 @@ def test_prefill_kernel_head_dims(gen, pool, dtype, hd, C, prefix, nvalid,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prefix,nvalid,window", [
+    (600, 512, 300), (4608, 512, 4096), (4096, 104, 4096)])
+def test_prefill_kernel_window_edge_inside_a_wide_chunk(gen, pool, dtype,
+                                                        prefix, nvalid,
+                                                        window):
+    """mixtral-8x7b's chunked prefill: 512-token chunks at 32 query heads
+    over 8 (hd 128) under a sliding window whose edge moves through the
+    chunk's rows: inside the chunk's own K/V (prefix 600, window 300),
+    across 32 pages of the pooled prefix (prefix 4608, window 4096), and
+    at the first chunk past the window (4096 + 104 tokens)."""
+    KVH, G, hd, C = 8, 4, 128, 512
+    bp = prefix // 16 + 1
+    q = torch.randn(1, C, KVH * G, hd, generator=gen, device="cuda")
+    own = [torch.randn(1, C, KVH, hd, generator=gen, device="cuda")
+           .to(dtype) for _ in range(2)]
+    kp, vp, bt, scales = _any_pools(gen, 1, bp, KVH, hd, pool)
+    pl = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    nv = torch.tensor([nvalid], dtype=torch.int32, device="cuda")
+    args = (q.to(dtype), kp, vp, bt, pl, nv, *own)
+    scale = hd ** -0.5
+    got = pa.paged_attention_prefill(*args, scale=scale, window=window,
+                                     **scales)
+    want = pa.paged_attention_prefill_plain(*args, scale, window,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    wide = pa.paged_attention_prefill_plain(*args, scale, None,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert bool((got[0, nvalid:] == 0).all())
+    assert (want - wide).abs().max().item() > 1e-3   # the window bites
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 128),
                                            (False, None), (False, 50)])
@@ -900,15 +940,15 @@ def test_head_dims_outside_the_built_set_raise(gen):
     assert sum(ops.launch_counts().values()) == 0
 
 
-def _smoke_engines(gen, arch, **kw):
-    """Greedy STEP on ``arch``'s smoke config, f32 params without EOS
-    (every trace decodes its 40 tokens, so 8 traces fill the 16-block
-    pool): the kernel engine's and the dense engine's results and launch
-    counts."""
-    cfg = serving_config(arch)
+def _smoke_engines(gen, arch, cfg=None, prompt="3+5-2=", **kw):
+    """Greedy STEP on ``arch``'s smoke config (or ``cfg``), f32 params
+    without EOS (every trace decodes its 40 tokens, so 8 traces fill the
+    16-block pool): the kernel engine's and the dense engine's results
+    and launch counts."""
+    cfg = cfg or serving_config(arch)
     params = _no_eos(_f32(init_params(cfg, gen)), cfg)
     scorer = init_scorer(gen, cfg.d_model)
-    prompt = get_tokenizer().encode("3+5-2=", add_bos=True)
+    prompt = get_tokenizer().encode(prompt, add_bos=True)
     out = {}
     for use_kernel in (True, False):
         ecfg = te.EngineConfig(
@@ -972,3 +1012,37 @@ def test_dense_arch_engine_kernel_path_matches_dense_on_card(gen, arch):
     (k, kc), (d, _) = runs[True], runs[False]
     assert kc["paged_attention_decode"] > 0 and kc["step_score"] > 0
     _same_greedy(k, d)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "internvl2-2b"])
+def test_moe_and_vlm_engine_kernel_path_matches_dense_on_card(gen, arch):
+    """mixtral's smoke config with an 8-token window and internvl2's,
+    f32 params and pool, a 25-token prompt prefilled in chunks of 4: the
+    kernel engine (K1b under the window, K1a, K2) against the dense
+    engine, identical greedy tokens and statuses, step scores within
+    1e-5; then ``forward_full(use_kernel=True)`` (K3, windowed for
+    mixtral) against the dense forward at 1e-4."""
+    cfg = serving_config(arch)
+    if cfg.sliding_window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=8)
+    cfg, params, runs = _smoke_engines(gen, arch, cfg=cfg,
+                                       prompt="12+34-5=41;6+7=13;8-2+9=",
+                                       kv_dtype="f32", prefill_chunk_size=4)
+    (k, kc), (d, dc) = runs[True], runs[False]
+    assert kc["paged_attention_prefill"] > 0
+    assert kc["paged_attention_decode"] == \
+        kc["step_score"] * cfg.num_layers > 0
+    assert dc["paged_attention_decode"] == dc["paged_attention_prefill"] == 0
+    _same_greedy(k, d)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = tm.forward_full(params, cfg, tokens, use_kernel=True)
+    counts = ops.launch_counts()
+    want = tm.forward_full(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert counts["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got["logits"], want["logits"],
+                               **TOL[torch.float32])
+    torch.testing.assert_close(got["aux_loss"], want["aux_loss"],
+                               **TOL[torch.float32])

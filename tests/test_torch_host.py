@@ -86,7 +86,7 @@ def test_serving_config_matches():
     full_t = t_registry.get_config("qwen3-4b-thinking")
     assert full_t.__dict__ == full_j.__dict__
     with pytest.raises(KeyError, match="ROADMAP"):
-        t_registry.get_config("mixtral-8x7b")
+        t_registry.get_config("deepseek-v2-236b")
 
 
 @pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8", "fp8"])
