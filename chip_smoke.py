@@ -103,6 +103,26 @@ Phases, each printing one JSON line:
                 token's first MoE routing flip within rounding's reach
                 of a gate tie, or after an earlier flip in its window;
  19. step_mixtral — phase 10 for mixtral's decode iteration.
+ 20. serve_deepseek, reference_deepseek, mla_layer, step_deepseek —
+                deepseek-v2-236b at full width, 8 of its 60 layers (MLA
+                over a latent pool of 576 per token and layer; 160 routed
+                experts top 6 plus 2 shared; 65.7 GB of bf16 weights), after
+                mixtral's are freed: phase 4's serve, which the JAX engine
+                runs dense (no kernel path for MLA): no K1 or K2 launch,
+                graphed against eager, the pairs the capacity of 1 per
+                expert drops at the first decode iteration; the smoke
+                config's CUDA engine against the CPU engine (and
+                ``use_kernel=True`` refused); one MLA layer's absorbed
+                decode over a pool filled from the full forward's latent
+                entries against the full forward's rows; phase 10;
+ 21. forward_seamless, decode_seamless — seamless-m4t-large-v2 at full
+                depth (24 encoder and 24 decoder layers, hd 64, 16 heads
+                over 16): ``forward_full(use_kernel=True)`` with the
+                encoder over 1024 frame embeddings and the decoder over 512
+                tokens, one K3 launch per decoder layer, against the dense
+                forward; then 8 lanes with their cross caches, a 64-token
+                prompt and 64 teacher-forced ``decode_step`` calls through
+                K1a (24 per step) against the same calls dense.
 
 The kernels phase also checks K1a/K1c at batched_mixtral's decode (4
 lanes over 288-page rows: each lane's pages in 9 parts, merged), K1b/K1c
@@ -111,7 +131,9 @@ window and K2 at D = 4096; the times phase times them
 (``paged_attention_decode_mixtral``, ``paged_attention_prefill_swa``,
 ``flash_attention_swa``, ``step_score_d4096``), each windowed bound
 counting only the visible (query, key) pairs and the pages that hold
-them.
+them. Both phases check and time K1a at decode_seamless's shape and K3 at
+forward_seamless's (``paged_attention_decode_seamless``,
+``flash_attention_seamless``).
 
 The line before the last is the kernel table as one JSON object, the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -468,11 +490,11 @@ def check_paged(pa, kvq, g, errs, B, H, KVH, hd, bp, lens, chunks,
                     f"window={window} {dtype}", got, want, tol))
 
 
-def check_flash(fa, g, errs, H, hd, tag=""):
-    """K3 against its plain version at B = 1, S = 2048: causal, a window
-    of 128 and non-causal, in bf16 and f32."""
+def check_flash(fa, g, errs, H, hd, tag="", S=2048):
+    """K3 against its plain version at B = 1 over S tokens: causal, a
+    window of 128 and non-causal, in bf16 and f32."""
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        qkv = [torch.randn(1, H, 2048, hd, generator=g, device="cuda")
+        qkv = [torch.randn(1, H, S, hd, generator=g, device="cuda")
                .to(dtype) for _ in range(3)]
         for causal, window in ((True, None), (True, 128), (False, None)):
             got = fa.flash_attention(*qkv, causal=causal, window=window)
@@ -497,6 +519,14 @@ PATHS_LOGIT_TOL = 0.05
 MIXTRAL_CAPACITY = 4608
 MIXTRAL_BP = MIXTRAL_CAPACITY // 16
 MIXTRAL_LENS = (4201, 4206, 4211, 4216)
+# seamless-m4t-large-v2's decode phase: lanes, decoder prompt, steps, the
+# capacity that holds them (8 pages of 16), the lane lengths the kernels
+# phase checks (an empty lane, then the steps' 65..128), and the forward
+# phase's decoder length
+SEAMLESS_B, SEAMLESS_PROMPT, SEAMLESS_STEPS = 8, 64, 64
+SEAMLESS_CAPACITY = 128
+SEAMLESS_LENS = [0] + [65 + (63 * i) // 6 for i in range(7)]
+SEAMLESS_S = 512
 
 
 def check_prefill_window(pa, kvq, g, errs):
@@ -620,11 +650,17 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     check_paged(pa, kvq, g, errs, 4, 32, 8, 128, MIXTRAL_BP,
                 list(MIXTRAL_LENS), [], [], "_mixtral")
     check_prefill_window(pa, kvq, g, errs)
+    # seamless-m4t's decoder (16 query heads over 16, hd 64) at
+    # decode_seamless's shape: 8 lanes of 65-128 slots over 8-page rows
+    check_paged(pa, kvq, g, errs, SEAMLESS_B, 16, 16, 64,
+                SEAMLESS_CAPACITY // 16, SEAMLESS_LENS, [], [], "_seamless")
     # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80;
-    # then forward_mixtral's S = 8192 under the 4096 window
+    # then forward_mixtral's S = 8192 under the 4096 window, and
+    # forward_seamless's decoder (16 heads, hd 64, S = 512)
     check_flash(fa, g, errs, 32, 128)
     check_flash(fa, g, errs, 32, 80, "_hd80")
     check_flash_window(fa, g, errs)
+    check_flash(fa, g, errs, 16, 64, "_seamless", S=SEAMLESS_S)
     # K2: B = 64, D = 2560 (qwen3-4b, mamba2, zamba2), hidden in bf16 and
     # f32; then the dense archs' widths over the dense_archs phase's 8
     # lanes: D = 2048 (qwen3-1.7b, internvl2-2b), 3072 (phi4-mini,
@@ -694,13 +730,16 @@ def check_result(res, engine):
 
 
 def tick_counting(E):
-    """An ``Engine`` that counts its decode ticks: one ``decode_fn``
-    lookup each (these phases inject no fault, so nothing retries)."""
+    """An ``Engine`` that counts its decode ticks (one ``decode_fn``
+    lookup each: these phases inject no fault, so nothing retries) and
+    the decode iterations they run."""
     class Engine(E.Engine):
         ticks = 0
+        iterations = 0   # decode iterations: each tick's horizon
 
         def decode_fn(self, horizon, lanewise=False):
             self.ticks += 1
+            self.iterations += horizon
             return super().decode_fn(horizon, lanewise)
     return Engine
 
@@ -711,13 +750,14 @@ def timed_run(ops, engine, run):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    ticks = engine.ticks
+    ticks, iters = engine.ticks, engine.iterations
     t0 = time.perf_counter()
     results = run(engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tokens = sum(r.total_tokens for r in results)
     return {"results": results, "wall_s": wall, "ticks": engine.ticks - ticks,
+            "iterations": engine.iterations - iters,
             "launches": ops.launch_counts(),
             "decode_s": sum(r.decode_s for r in results),
             "total_tokens": tokens, "tokens_per_s": tokens / wall,
@@ -812,7 +852,7 @@ def graphed_vs_eager(ops, make_engine, run, name, calls=3, fresh=False,
         check([t.output_tokens for r in g["results"] for t in r.traces]
               == [t.output_tokens for r in first["results"]
                   for t in r.traces], f"{name}: graphed calls differ")
-    iters = max(eager["launches"]["step_score"], 1)
+    iters = max(eager["iterations"], 1)
     best = min(g["wall_s"] for g in graphed)
     report.update({
         "eager": {k: eager[k] for k in ("wall_s", "decode_s", "ticks",
@@ -841,7 +881,9 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
     chunked prefill, so both faces of the quantized kernel run), or
     ``name``. An MoE model's line also gives, per layer, the (lane, k)
     pairs and the lanes that the expert capacity drops at the first decode
-    iteration of the eager run."""
+    iteration of the eager run. An MLA model (deepseek-v2) takes no
+    kernel, as in the JAX engine: "auto" resolves dense, the scorer is
+    the plain one, and the serve must launch neither K1 nor K2."""
     E = rt["engine"]
     if name is None:
         name = "serve" if kv_dtype == "bf16" else f"serve_{kv_dtype}"
@@ -872,8 +914,8 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
         engine = tick_counting(E)(params, cfg, ecfg,
                                   rt["pruning"].make_policy("step"),
                                   scorer_params=scorer, _eager_decode=eager)
-        check(engine.use_kernel and engine.fused_scorer,
-              "engine not on the kernel path")
+        check(engine.use_kernel == engine.fused_scorer == (not cfg.use_mla),
+              f"{name}: engine not on the kernel path, or MLA on it")
         return engine
 
     def run(engine):
@@ -887,18 +929,24 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
         if drops is not None:
             restore()
     res, launches = first["results"][0], first["launches"]
-    check(launches[decode] > 0, f"{decode} never launched")
+    iters = first["iterations"]
+    if cfg.use_mla:
+        check(all(n == 0 for k, n in launches.items()
+                  if not k.startswith("decode_graph")),
+              f"{name}: a kernel launched on the MLA path: {launches}")
+    else:
+        check(launches[decode] > 0, f"{decode} never launched")
+        check(launches["step_score"] == iters,
+              "K2 did not launch once per decode iteration")
     if quant:
         check(launches["paged_attention_prefill_quant"] > 0,
               "K1c prefill face never launched")
         check(launches["paged_attention_decode"] == 0
               and launches["paged_attention_prefill"] == 0,
               "a float-pool kernel ran on a quantized pool")
-    check(launches["step_score"] > 0, "K2 never launched")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
           "STEP made a trace wait")
-    iters = launches["step_score"]  # one fused scorer launch per iteration
     out = {"kv_dtype": kv_dtype, "prefill_chunk_size": chunk,
            "prompt_tokens": len(prompt), "traces": 16,
            "num_pruned": res.num_pruned, "total_tokens": res.total_tokens,
@@ -1766,41 +1814,47 @@ def phase_forward_mixtral(rt, ops, cfg, params):
     return out
 
 
-def phase_forward_kernel(rt, ops, cfg, params):
-    """``forward_full(use_kernel=True)`` at full width, B = 1, S = 1024,
-    against the dense forward: one K3 launch per layer. Both round every
-    activation to bf16, at other places, through 36 layers: the logits
-    are held within 5% of their largest magnitude, and the greedy tokens
-    of at least 80% of the positions agree (random weights leave near
-    ties among 152k logits)."""
+def phase_forward_kernel(rt, ops, cfg, params, name="forward_kernel",
+                         S=1024, **inputs):
+    """``forward_full(use_kernel=True)`` at full width, B = 1, over S
+    tokens (and ``inputs``: an encoder-decoder's ``encoder_embeds``),
+    against the dense forward: one K3 launch per (decoder) layer. Both
+    round every activation to bf16, at other places, through every
+    layer: the logits are held within 5% of their largest magnitude, and
+    the greedy tokens of at least 80% of the positions agree (random
+    weights leave near ties among 100k or more logits)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=g,
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
                            device="cuda", dtype=torch.int32)
     fwd = rt["model"].forward_full
     with torch.no_grad():
-        dense = fwd(params, cfg, tokens)["logits"][..., :cfg.vocab_size]
+        dense = fwd(params, cfg, tokens, **inputs)["logits"]
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        got = fwd(params, cfg, tokens, use_kernel=True)["logits"]
+        got = fwd(params, cfg, tokens, use_kernel=True, **inputs)["logits"]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
     got = got[..., :cfg.vocab_size].float()
-    dense = dense.float()
+    dense = dense[..., :cfg.vocab_size].float()
     err = (got - dense).abs().max().item()
     amax = dense.abs().max().item()
     agree = (got.argmax(-1) == dense.argmax(-1)).float().mean().item()
-    check(bool(torch.isfinite(got).all()), "K3 forward: non-finite logits")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
     check(launches["flash_attention"] == cfg.num_layers,
-          f"K3 launched {launches['flash_attention']} times, not once per "
-          f"layer")
-    check(err <= 0.05 * amax, f"K3 forward: logits err {err} vs max {amax}")
-    check(agree >= 0.8, f"K3 forward: greedy tokens agree at {agree}")
-    out = {"shape": "B=1 S=1024 bf16", "launches": launches,
+          f"{name}: K3 launched {launches['flash_attention']} times, not "
+          f"once per layer")
+    check(err <= PATHS_LOGIT_TOL * amax,
+          f"{name}: logits err {err} vs max {amax}")
+    check(agree >= 0.8, f"{name}: greedy tokens agree at {agree}")
+    shape = f"B=1 S={S} bf16"
+    if "encoder_embeds" in inputs:
+        shape += f", encoder T={inputs['encoder_embeds'].shape[1]}"
+    out = {"shape": shape, "launches": launches,
            "logits_max_abs_err": err, "logits_max_abs": amax,
            "argmax_agreement": agree, "wall_s": wall}
-    emit("forward_kernel", **out)
+    emit(name, **out)
     return out
 
 
@@ -2218,6 +2272,14 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     rows["paged_attention_decode_mixtral"] = time_decode(
         pa, kvq, g, 4, 32, 8, 128, MIXTRAL_BP, list(MIXTRAL_LENS))
     torch.cuda.empty_cache()
+    # seamless-m4t's decoder: K1a at decode_seamless's 8 lanes (the
+    # steps' 65..128 slots), K3 at forward_seamless's S = 512 (16 heads,
+    # hd 64)
+    rows["paged_attention_decode_seamless"] = time_decode(
+        pa, kvq, g, SEAMLESS_B, 16, 16, 64, SEAMLESS_CAPACITY // 16,
+        SEAMLESS_LENS[1:] + [SEAMLESS_CAPACITY])
+    rows["flash_attention_seamless"] = time_flash(fa, g, 16, 64, bf,
+                                                  S=SEAMLESS_S)
 
     # K2 at the decode batch: 16 lanes, D = 2560, bf16 hidden
     D, Hd = 2560, 512
@@ -2338,11 +2400,248 @@ def phase_dense_archs(rt, ops):
     emit("dense_archs", **out)
     return out
 
+# deepseek-v2-236b's depth on one 80 GB card: 8 of its 60 layers (65.7 GB
+# of bf16 weights; all 60 would take 472 GB)
+DEEPSEEK_LAYERS = 8
+
+
+def phase_reference_deepseek(rt):
+    """deepseek's smoke config, f32 params with EOS suppressed: the CUDA
+    engine against the port's CPU engine, greedy STEP over 8 traces of one
+    prompt in the 16-block pool (so STEP prunes). MLA takes no kernel,
+    as in the JAX engine: ``use_kernel=True`` must raise, and "auto"
+    serves dense with the plain scorer on both devices. Tokens, statuses
+    and prunes identical; step scores within 1e-4 (the devices sum in
+    other orders)."""
+    E, ops = rt["engine"], rt["ops"]
+    cfg = rt["registry"].serving_config("deepseek-v2-236b")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    tok = rt["tokenizer"].get_tokenizer()
+    params = no_eos(to_f32(rt["init"].init_params(cfg, g)), cfg, tok.eos_id)
+    scorer = rt["scorer"].init_scorer(g, cfg.d_model)
+    prompt = tok.encode("3+5-2=", add_bos=True)
+
+    def ecfg(use_kernel):
+        return E.EngineConfig(max_batch=8, num_blocks=16, capacity=128,
+                              max_new_tokens=40, sampling=greedy(rt, 40),
+                              use_kernel=use_kernel, decode_horizon=4,
+                              faults=None, kv_dtype="f32")
+
+    try:
+        E.Engine(params, cfg, ecfg(True), rt["pruning"].make_policy("step"),
+                 scorer_params=scorer)
+        raised = None
+    except NotImplementedError as err:
+        raised = str(err)
+    check(raised is not None, "use_kernel=True did not raise for MLA")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        engine = E.Engine(params, cfg, ecfg("auto"),
+                          rt["pruning"].make_policy("step"),
+                          scorer_params=scorer, device=device)
+        check(not engine.use_kernel and not engine.fused_scorer,
+              f"the {device} MLA engine took a kernel")
+        ops.reset_launch_counts()
+        res = engine.serve(prompt, 8)
+        torch.cuda.synchronize()
+        check_result(res, engine)
+        outs[device] = (res, ops.launch_counts())
+    (c, launches), (h, _) = outs["cuda"], outs["cpu"]
+    check(all(n == 0 for k, n in launches.items()
+              if not k.startswith("decode_graph")),
+          f"reference_deepseek: a kernel launched: {launches}")
+    check([t.output_tokens for t in c.traces]
+          == [t.output_tokens for t in h.traces], "CUDA != CPU tokens")
+    check([t.status for t in c.traces] == [t.status for t in h.traces],
+          "CUDA != CPU statuses")
+    check(c.num_pruned == h.num_pruned > 0,
+          "CUDA != CPU prunes, or no pruning")
+    err = max((abs(a - b) for tc, th in zip(c.traces, h.traces)
+               for a, b in zip(tc.step_scores, th.step_scores)), default=0.0)
+    check(err <= 1e-4, f"CUDA vs CPU step scores differ by {err}")
+    emit("reference_deepseek", config=cfg.name, kv_dtype="f32",
+         use_kernel_true_raises=raised, launches=launches,
+         tokens_identical=True, num_pruned=c.num_pruned,
+         tokens_compared=sum(len(t.output_tokens) for t in c.traces),
+         step_scores=sum(len(t.step_scores) for t in c.traces),
+         max_step_score_err=err)
+
+
+def phase_mla_layer(rt, cfg, params):
+    """Layer 0's MLA attention at full width (128 heads, kv_lora 512,
+    rope 64), B = 4, S = 256: ``mla_attention_full(return_kv=True)``'s
+    latent entries of the first 240 tokens fill a paged pool, then the
+    absorbed decode (``mla_attention_decode``) runs the last 16 tokens one
+    at a time. Each decoded row against the full forward's row at that
+    position: in bf16 (the served params) within the bf16 tolerance, and
+    on the same weights in f32 within the f32 one. The two paths round
+    at other places (the decode folds ``wk_b`` into q and ``wv_b`` into
+    the output)."""
+    M, L = rt["model"], rt["layers"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, S, S0, bs = 4, 256, 240, cfg.kv_block_size
+    bp = S // bs
+    bt = (1 + torch.arange(B * bp, device="cuda", dtype=torch.int32)) \
+        .reshape(B, bp)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None] \
+        .expand(B, S)
+    x0 = torch.randn(B, S, cfg.d_model, generator=g, device="cuda")
+    out = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        lp = {k: v[0].to(dtype) for k, v in params["layers"]["attn"].items()}
+        x = x0.to(dtype)
+        with torch.no_grad():
+            full, entries = L.mla_attention_full(lp, cfg, x, pos,
+                                                 return_kv=True)
+            pool = torch.zeros((1, B * bp + 1, bs, entries.shape[-1]),
+                               dtype=dtype, device="cuda")
+            M.write_pool_kv(cfg, {"kv_pool": pool, "block_tables": bt},
+                            entries[None, :, :S0])
+            rows = []
+            for t in range(S0, S):
+                rows.append(L.mla_attention_decode(
+                    lp, cfg, x[:, t:t + 1], pos[:, t].contiguous(),
+                    {"kv_pool": pool[0], "block_tables": bt,
+                     "window_len": S})[:, 0])
+        got = torch.stack(rows, dim=1)
+        want = full[:, S0:]
+        key = str(dtype)[6:]
+        out[key] = {"max_abs_err": compare(f"mla_layer {key}", got, want,
+                                           tol),
+                    "max_abs": want.float().abs().max().item()}
+        # the decode wrote the last 16 tokens' entries where the full
+        # forward's would go
+        out[key]["entries_max_abs_err"] = (
+            M.write_pool_kv(cfg, {"kv_pool": pool.clone(),
+                                  "block_tables": bt},
+                            entries[None])["kv_pool"]
+            - pool).abs().max().item()
+    emit("mla_layer", shape=f"B={B} S={S}, decode of the last {S - S0}",
+         heads=cfg.num_heads, kv_lora=cfg.kv_lora_rank,
+         rope=cfg.qk_rope_head_dim, tolerances={"bf16": BF16_TOL,
+                                                "f32": F32_TOL}, **out)
+    return out
+
+
+def phase_forward_seamless(rt, ops, cfg, params):
+    """seamless-m4t at full depth: the encoder over 1024 frame embeddings
+    (the stub frontend's, 0.02 N(0, 1)), the decoder over 512 tokens,
+    each decoder layer's self-attention through K3 (hd 64, 16 heads; the
+    encoder stays dense, as in the JAX package), held as
+    :func:`phase_forward_kernel` holds its forward."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    enc = (0.02 * torch.randn(1, cfg.encoder_seq_len, cfg.d_model,
+                              generator=g, device="cuda")).to(torch.bfloat16)
+    return phase_forward_kernel(rt, ops, cfg, params, "forward_seamless",
+                                S=SEAMLESS_S, encoder_embeds=enc)
+
+
+def phase_decode_seamless(rt, ops, cfg, params):
+    """seamless-m4t's decoder as a server would run it, at full depth:
+    8 lanes, each over the encoder output of its own 1024 frames
+    (``build_cross_cache``), a 64-token decoder prompt prefilled one-shot,
+    then 64 teacher-forced ``decode_step`` calls through K1a (one launch
+    per decoder layer and step: hd 64, 16 query heads over 16) against
+    the same calls dense, each path over its own pool. On the same
+    weights in f32 the logits of every step agree within the f32
+    tolerance. On the bf16 params the kernel and the plain decode agree
+    to a few 1e-7 (``kernels``), but each logit is a bf16 value of up to
+    ~5, whose ulp is 0.03: a rare one-ulp difference in an attention
+    output moves some logits by two ulps, past the bf16 tolerance. So
+    each bf16 step is held as ``forward_kernel``'s logits are (within 5%
+    of their largest magnitude, greedy tokens agreeing at 80% or more),
+    and the share of logits within the bf16 tolerance is reported."""
+    M = rt["model"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    B, P, n = SEAMLESS_B, SEAMLESS_PROMPT, SEAMLESS_STEPS
+    T, V = cfg.encoder_seq_len, cfg.vocab_size
+    enc0 = 0.02 * torch.randn(B, T, cfg.d_model, generator=g, device="cuda")
+    tokens = torch.randint(0, V, (B, P + n), generator=g, device="cuda",
+                           dtype=torch.int32)
+    launches = {"paged_attention_decode": 0}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else to_f32(params)
+        enc = enc0.to(dtype)
+        key = str(dtype)[6:]
+        errs, within, agree, kernel_s, amax = [], 0, 0, 0.0, 0.0
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            pre = M.forward_full(p, cfg, tokens[:, :P], encoder_embeds=enc,
+                                 return_kv=True)
+            cross = M.build_cross_cache(p, cfg, M.encode(p, cfg, enc))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            caches = {}
+            for use_kernel in (False, True):
+                c = M.init_decode_cache(cfg, B, SEAMLESS_CAPACITY,
+                                        encoder_len=T,
+                                        kv_dtype="bf16" if key == "bfloat16"
+                                        else "f32", device="cuda")
+                M.write_prefill_kv(cfg, c, pre["kvs"],
+                                   torch.full((B,), P, dtype=torch.int32,
+                                              device="cuda"))
+                c["cross_k"], c["cross_v"] = cross
+                caches[use_kernel] = c
+            for i in range(n):
+                pos = torch.full((B,), P + i, dtype=torch.int32,
+                                 device="cuda")
+                step = tokens[:, P + i:P + i + 1]
+                want = M.decode_step(p, cfg, step, pos, caches[False],
+                                     window_len=SEAMLESS_CAPACITY)["logits"]
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = M.decode_step(p, cfg, step, pos, caches[True],
+                                    window_len=SEAMLESS_CAPACITY,
+                                    use_kernel=True)["logits"]
+                torch.cuda.synchronize()
+                kernel_s += time.perf_counter() - t0
+                k1a = ops.launch_counts()["paged_attention_decode"]
+                check(k1a == cfg.num_layers,
+                      f"decode_seamless {key} step {i}: {k1a} K1a launches")
+                launches["paged_attention_decode"] += k1a
+                got, want = (x[:, :V].float() for x in (got, want))
+                check(bool(torch.isfinite(got).all()),
+                      f"decode_seamless {key} step {i}: non-finite")
+                err = (got - want).abs().max().item()
+                step_max = want.abs().max().item()
+                amax = max(amax, step_max)
+                errs.append(err)
+                if dtype == torch.float32:
+                    compare(f"decode_seamless f32 step {i}", got, want,
+                            F32_TOL)
+                else:
+                    check(err <= PATHS_LOGIT_TOL * step_max,
+                          f"decode_seamless bf16 step {i}: logits err "
+                          f"{err} vs max {step_max}")
+                within += int(torch.isclose(got, want, **BF16_TOL).sum())
+                agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        check(agree >= 0.8 * B * n,
+              f"decode_seamless {key}: greedy tokens agree at "
+              f"{agree / (B * n)}")
+        out[key] = {"prefill_s": prefill_s,
+                    "kernel_decode_ms_per_step": kernel_s / n * 1e3,
+                    "logits_max_abs_err": max(errs),
+                    "logits_max_abs_err_by_step": errs[::8],
+                    "logits_max_abs": amax,
+                    "share_within_bf16_tolerance": within / (B * n * V),
+                    "argmax_agreement": agree / (B * n)}
+        del p, pre, cross, caches
+    out = {"lanes": B, "encoder_frames": T, "prompt_tokens": P, "steps": n,
+           "launches": launches,
+           "tolerances": {"f32": F32_TOL, "bf16": "within "
+                          f"{PATHS_LOGIT_TOL} of the step's largest logit"},
+           **out}
+    emit("decode_seamless", **out)
+    return out
+
 
 def phase_step(rt, cfg, params, name="step"):
-    """One full-width decode iteration (``decode_step``, kernels on) at the
-    serve phase's shape: the host's wall time per eager call against the
-    device time of the same work replayed from a CUDA graph. Their
+    """One full-width decode iteration (``decode_step``, kernels on where
+    the arch has them) at the serve phase's shape: the host's wall time
+    per eager call against the device time of the same work replayed
+    from a CUDA graph. Their
     difference is what the host adds (op-by-op launches). The ssm stack
     also reads and writes its whole recurrent state once per iteration
     (``state_bound_ms``)."""
@@ -2357,9 +2656,10 @@ def phase_step(rt, cfg, params, name="step"):
                            device="cuda", dtype=torch.int32)
     positions = torch.full((B,), 79, dtype=torch.int32, device="cuda")
 
-    def step():
+    def step():   # MLA has no kernel path: it decodes dense
         return rt["model"].decode_step(params, cfg, tokens, positions, cache,
-                                       window_len=capacity, use_kernel=True)
+                                       window_len=capacity,
+                                       use_kernel=not cfg.use_mla)
 
     for _ in range(3):
         step()
@@ -2477,6 +2777,33 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # deepseek-v2-236b at full width, 8 of its 60 layers (65.7 GB of bf16
+    # weights), after mixtral's are freed
+    dcfg, dparams, dscorer, n_params, init_s = full_model(
+        rt, "deepseek-v2-236b", layers=DEEPSEEK_LAYERS)
+    emit("model", name=dcfg.name, layers=dcfg.num_layers,
+         d_model=dcfg.d_model, params=n_params, init_s=init_s)
+    phase_serve(rt, ops, dcfg, dparams, dscorer, name="serve_deepseek")
+    phase_reference_deepseek(rt)
+    phase_mla_layer(rt, dcfg, dparams)
+    phase_step(rt, dcfg, dparams, "step_deepseek")
+    del dparams, dscorer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # seamless-m4t-large-v2 at full depth (24 encoder and 24 decoder
+    # layers, 4.07 GB of bf16 weights)
+    scfg, sparams, _, n_params, init_s = full_model(
+        rt, "seamless-m4t-large-v2")
+    emit("model", name=scfg.name, layers=scfg.num_layers,
+         encoder_layers=scfg.num_encoder_layers, d_model=scfg.d_model,
+         params=n_params, init_s=init_s)
+    forward_s2s = phase_forward_seamless(rt, ops, scfg, sparams)
+    decode_s2s = phase_decode_seamless(rt, ops, scfg, sparams)
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"
     paged = (src + "paged_attention.cu",
@@ -2509,6 +2836,15 @@ def main() -> int:
                                 "src/repro/kernels/flash_attention.py:38",
                                 "flash_swa_bfloat16",
                                 forward_moe["launches"]["flash_attention"]),
+        # seamless-m4t's decoder: 16 query heads over 16 at hd 64
+        "paged_attention_decode_seamless": (
+            *paged, "decode_seamless_bfloat16",
+            decode_s2s["launches"]["paged_attention_decode"]),
+        "flash_attention_seamless": (src + "flash_attention.cu",
+                                     "src/repro/kernels/flash_attention.py:38",
+                                     "flash_seamless_bfloat16",
+                                     forward_s2s["launches"][
+                                         "flash_attention"]),
         "step_score_d4096": (src + "step_score.cu",
                              "src/repro/kernels/step_score.py:30",
                              "score_d4096_bfloat16",

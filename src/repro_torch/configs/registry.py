@@ -1,8 +1,5 @@
-"""Architecture registry of the PyTorch port.
-
-The port covers the architectures its slices have brought over; every
-other arch of the JAX package raises ``KeyError`` naming the ROADMAP item
-that ports it.
+"""Architecture registry of the PyTorch port: every arch of the JAX
+package's zoo, by the same names. An unknown arch raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -32,16 +29,18 @@ _ARCH_MODULES: Dict[str, str] = {
     # MoE (8 experts, top 2, capacity dispatch) over sliding-window
     # attention.
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    # MoE (160 routed experts top 6, 2 shared) over multi-head latent
+    # attention: the paged pool holds one latent entry per token.
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    # Encoder-decoder: an encoder over stub frontend embeddings, a decoder
+    # with cross-attention to it.
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
-# Archs of the JAX package not ported yet (ROADMAP A9: the arch zoo).
-_NOT_PORTED = ("deepseek-v2-236b", "seamless-m4t-large-v2")
+ALL_ARCHS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet "
-                       f"(ROADMAP A9); ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(_ARCH_MODULES[arch])

@@ -1,10 +1,14 @@
-"""Parameter initialization for the ported architectures (dense, MoE,
-vlm, ssm, hybrid).
+"""Parameter initialization for every architecture of the zoo (dense,
+MoE, vlm, ssm, hybrid, MLA, encoder-decoder).
 
 Layer params are STACKED along a leading [num_layers] axis, in the JAX
 package's names and layouts (``wq [L, D, H*hd]``, ``embed [Vp, D]``); the
 hybrid stacks its Mamba2 layers [groups, layers_per_group, ...] beside a
-single ``shared_attn`` decoder layer. So
+single ``shared_attn`` decoder layer; an MLA layer's attention holds the
+low-rank projections (``wq_a``, ``wq_b``, ``wkv_a``, ``wk_b``, ``wv_b``,
+``wo`` and two norms); an encoder-decoder adds an ``encoder`` stack and
+``encoder_norm``, and gives each decoder layer ``ln_cross`` and a
+``cross`` attention. So
 ``models.bridge`` maps one package's weights onto the other one to one.
 Scales and the bf16 storage follow ``repro/models/init.py``; the random
 numbers come from a ``torch.Generator`` and so differ from JAX's.
@@ -20,7 +24,8 @@ from repro_torch.models.model import check_ported
 
 DTYPE = torch.bfloat16
 # A stacked weight of more elements than this (granite-20b's MLP: 7.9e9;
-# mixtral-8x7b's experts: 1.5e10 at 32 layers) is drawn one leading slice
+# mixtral-8x7b's experts: 1.5e10 at 32 layers; deepseek-v2's: 1.3e9 per
+# layer) is drawn one leading slice
 # (layer) at a time, so that its f32 draw never holds
 # more than a slice (a whole one would take 31 GB beside the params).
 # Slice-wise draws need not give the numbers of one whole draw, so the
@@ -35,8 +40,7 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random params of a dense (MoE, vlm), ssm or hybrid stack on
-    ``generator``'s device."""
+    """Random params of ``cfg``'s stack on ``generator``'s device."""
     check_ported(cfg)
     dev = generator.device
 
@@ -47,9 +51,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
                             dtype=torch.float32)
             return (w * scale).to(DTYPE)
         out = torch.empty(shape, dtype=DTYPE, device=dev)
-        for w_i in out:
+        for w_i in out:   # one f32 slice alive at a time
             w_i.copy_(torch.randn(shape[1:], generator=generator, device=dev,
-                                  dtype=torch.float32) * scale)
+                                  dtype=torch.float32).mul_(scale))
         return out
 
     def ones(*shape):
@@ -71,6 +75,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         params["layers"] = {"norm": ones(*stack, D),
                             "mixer": _mamba_params(cfg, dense, dev, stack)}
         params["shared_attn"] = _dense_layers(cfg, dense, ones, ())
+    elif cfg.is_encoder_decoder:
+        Le = (cfg.num_encoder_layers,)
+        params["encoder"] = {"ln1": ones(*Le, D),
+                             "attn": _attn_params(cfg, dense, ones, Le),
+                             "ln2": ones(*Le, D),
+                             "mlp": _mlp_params(cfg, dense, Le, cfg.d_ff)}
+        params["encoder_norm"] = ones(D)
+        params["layers"] = _dense_layers(cfg, dense, ones, (L,), cross=True)
     else:
         params["layers"] = _dense_layers(cfg, dense, ones, (L,))
     if not cfg.tie_embeddings:
@@ -78,10 +90,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params
 
 
-def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
+def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple,
+                  cross: bool = False) -> dict:
     """Decoder layers stacked over ``stack`` (``(L,)``, or ``()`` for the
-    hybrid's one shared block); the output scales count all
-    ``num_layers``, as the JAX package's do."""
+    hybrid's one shared block), with MLA attention when ``cfg.use_mla``
+    and, with ``cross``, a cross-attention to the encoder; the output
+    scales count all ``num_layers``, as the JAX package's do."""
+    D = cfg.d_model
+    attn = (_mla_params(cfg, dense, ones, stack) if cfg.use_mla
+            else _attn_params(cfg, dense, ones, stack))
+    layer = {"ln1": ones(*stack, D), "attn": attn, "ln2": ones(*stack, D)}
+    if cfg.uses_moe:
+        layer["moe"] = _moe_params(cfg, dense, stack)
+    else:
+        layer["mlp"] = _mlp_params(cfg, dense, stack, cfg.d_ff)
+    if cross:
+        layer["ln_cross"] = ones(*stack, D)
+        layer["cross"] = _attn_params(cfg, dense, ones, stack)
+    return layer
+
+
+def _attn_params(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
+    """GQA attention: ``wq [D, H*hd]``, ``wk``/``wv [D, KVH*hd]``, ``wo``
+    and, with qk-norm, ``q_norm``/``k_norm [hd]``."""
     D = cfg.d_model
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     depth = math.sqrt(2 * max(cfg.num_layers, 1))
@@ -95,12 +126,30 @@ def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = ones(*stack, hd)
         attn["k_norm"] = ones(*stack, hd)
-    layer = {"ln1": ones(*stack, D), "attn": attn, "ln2": ones(*stack, D)}
-    if cfg.uses_moe:
-        layer["moe"] = _moe_params(cfg, dense, stack)
-    else:
-        layer["mlp"] = _mlp_params(cfg, dense, stack, cfg.d_ff)
-    return layer
+    return attn
+
+
+def _mla_params(cfg: ModelConfig, dense, ones, stack: tuple) -> dict:
+    """``repro/models/init.py::_mla_params``: the query's low-rank pair
+    (``wq_a [D, q_lora]``, ``wq_b [q_lora, H*(nope+rope)]``), the shared
+    latent and roped key (``wkv_a [D, kv_lora+rope]``), their per-head
+    up-projections (``wk_b [kv_lora, H*nope]``, ``wv_b [kv_lora, H*v]``),
+    ``wo [H*v, D]``, and the two latents' norms."""
+    D, H = cfg.d_model, cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    Lk, Lq = cfg.kv_lora_rank, cfg.q_lora_rank
+    return {
+        "wq_a": dense(D, *stack, D, Lq),
+        "wq_b": dense(Lq, *stack, Lq, H * (nd + rd)),
+        "wkv_a": dense(D, *stack, D, Lk + rd),
+        "wk_b": dense(Lk, *stack, Lk, H * nd),
+        "wv_b": dense(Lk, *stack, Lk, H * vd),
+        "wo": dense(H * vd, *stack, H * vd, D,
+                    scale=1.0 / math.sqrt(H * vd)
+                    / math.sqrt(2 * cfg.num_layers)),
+        "q_a_norm": ones(*stack, Lq),
+        "kv_a_norm": ones(*stack, Lk),
+    }
 
 
 def _mlp_params(cfg: ModelConfig, dense, stack: tuple, F: int) -> dict:

@@ -1,6 +1,8 @@
-"""Primitive layers of the dense, MoE, ssm and hybrid stacks (plain
-functions on tensors, params as dicts of tensors), ported from
-``repro/models/layers.py``.
+"""Primitive layers of every stack of the zoo (plain functions on
+tensors, params as dicts of tensors), ported from
+``repro/models/layers.py``: GQA attention (full, paged decode, chunked
+prefill), MLA (full and the absorbed paged decode over the latent pool),
+cross-attention, the MoE and SwiGLU feed-forwards, and the Mamba2 mixer.
 
 All matmul weights are 2-D ``[in, out]`` as in the JAX package. Norms,
 softmax and attention accumulate in f32; weights and activations are
@@ -25,7 +27,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import kv_quant as KQ
 from repro_torch.kernels.paged_attention import (
     check_index, masked_softmax_pv, paged_attention_plain,
-    paged_attention_prefill_plain)
+    gather_pages, paged_attention_prefill_plain)
 # the one-token Mamba2 steps live beside their fused kernel
 from repro_torch.kernels.ssm_decode import (  # noqa: F401
     causal_conv1d_step, ssd_decode_step, ssm_decay, ssm_decode_plain)
@@ -525,6 +527,154 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
             q, k_pool, v_pool, block_tables, prefix_lens, num_valid, own_k,
             own_v, scale, window, k_scale, v_scale)
     return out.reshape(B, C, H * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] attends over all of the encoder's K/V ``enc_k``/``enc_v``
+    [B, T, KVH, hd] (no mask, no rope): f32 scores, probabilities cast to
+    x's dtype before P.V. A K/V cache of another dtype than x (the JAX
+    package's bf16 cross cache under f32 params) is read in x's dtype,
+    as the JAX package's promotion does."""
+    B, S, D = x.shape
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = (x @ p["wq"]).reshape(B, S, KVH, H // KVH, hd)
+    scores = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), enc_k.float())
+    probs = torch.softmax(scores * (1.0 / math.sqrt(hd)), dim=-1) \
+        .to(x.dtype)
+    out = torch.einsum("bkgqt,btkh->bqkgh", probs, enc_v.to(x.dtype))
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention's K/V of the encoder output [B, T, D]: each
+    [B, T, KVH, hd]."""
+    B, T, _ = enc_out.shape
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(B, T, KVH, hd),
+            (enc_out @ p["wv"]).reshape(B, T, KVH, hd))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """The low-rank projections of x [..., D] at ``positions`` [...]:
+    (q_nope [..., H, nope], q_rope [..., H, rope] roped, the normed
+    latent c_kv [..., kv_lora], the shared roped key k_rope [..., rope])."""
+    H = cfg.num_heads
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    Lk = cfg.kv_lora_rank
+    q_lat = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(*x.shape[:-1], H, nd + rd)
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :Lk], p["kv_a_norm"], cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    q_rope = apply_rope(q[..., nd:], cos, sin)
+    k_rope = apply_rope(kv_a[..., None, Lk:], cos, sin)[..., 0, :]
+    return q[..., :nd], q_rope, c_kv, k_rope
+
+
+def mla_attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor, return_kv: bool = False):
+    """Full-sequence MLA (one-shot prefill and training), causal.
+
+    p: {wq_a [D, q_lora], wq_b [q_lora, H*(nope+rope)],
+    wkv_a [D, kv_lora+rope], wk_b [kv_lora, H*nope], wv_b [kv_lora, H*v],
+    wo [H*v, D], q_a_norm [q_lora], kv_a_norm [kv_lora]}; x [B, S, D].
+    Up to ``CHUNKED_ATTN_THRESHOLD`` tokens the nope and rope scores are
+    two f32 einsums over the materialised [S, S] scores; beyond, the
+    shared roped key is folded into per-head keys and the attention runs
+    :func:`chunked_mha`. With ``return_kv`` also returns the paged pool's
+    entry of each token, [latent (kv_lora) | roped key (rope)]
+    [B, S, kv_lora + rope]."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, nd)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, H, vd)
+    scale = 1.0 / math.sqrt(nd + rd)
+    if S > CHUNKED_ATTN_THRESHOLD:
+        qh = torch.cat([q_nope, q_rope], dim=-1) * scale
+        kh = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rd)],
+                       dim=-1)
+        out = chunked_mha(qh.transpose(1, 2), kh.transpose(1, 2),
+                          v.transpose(1, 2), chunk=ATTN_CHUNK)
+        out = out.transpose(1, 2).reshape(B, S, H * vd)
+    else:
+        scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                                 k_rope.float())) * scale
+        mask = _attn_mask(S, S, None, x.device)
+        probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1) \
+            .to(x.dtype)
+        out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(B, S, H * vd)
+    out = out @ p["wo"]
+    if return_kv:
+        return out, torch.cat([c_kv, k_rope], dim=-1)
+    return out
+
+
+def mla_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                         positions: torch.Tensor, cache: dict,
+                         writer: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Absorbed-weight MLA decode over the paged latent pool, one layer.
+
+    x [B, 1, D]; positions [B]; cache holds this layer's ``kv_pool``
+    [N_blocks, bs, kv_lora + rope] (written in place), ``block_tables``
+    and ``window_len`` (the engine's capacity: the slot wraps at it and
+    the lengths are capped by it). ``wk_b`` is folded into the query
+    (q_abs [B, H, kv_lora], in x's dtype) and ``wv_b`` into the output,
+    so attention runs in the latent space: f32 scores, probabilities cast
+    to x's dtype before P.latent. ``writer`` [B] (:func:`last_writer`)
+    gives each lane the lane whose entry it writes, as the GQA decode's.
+    Returns out [B, 1, D]."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    Lk = cfg.kv_lora_rank
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x[:, 0], positions)
+    entry = torch.cat([c_kv, k_rope], dim=-1)          # [B, kv_lora + rope]
+    if writer is not None:   # lanes sharing a slot write its last writer's
+        entry = entry[writer]
+
+    pool, bt = cache["kv_pool"], cache["block_tables"]
+    window_len = cache["window_len"]
+    slot = positions % window_len if window_len > 0 else positions
+    block_ids, offs = _slot_ids(bt, slot, pool.shape[1], pool.shape[0],
+                                "decode")
+    pool[block_ids, offs] = entry.to(pool.dtype)
+    new_lens = (torch.clamp(positions + 1, max=window_len) if window_len > 0
+                else positions + 1)
+
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope,
+                         p["wk_b"].reshape(Lk, H, nd))
+    entries = gather_pages(pool, bt)                   # [B, bp * bs, Lk+rd]
+    c_seq, kr_seq = entries[..., :Lk], entries[..., Lk:]
+    scores = (torch.einsum("bhl,bsl->bhs", q_abs.float(), c_seq.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_seq.float()))
+    scores = scores * (1.0 / math.sqrt(nd + rd))
+    valid = (torch.arange(entries.shape[1], device=x.device)[None, :]
+             < new_lens[:, None])
+    probs = torch.softmax(torch.where(valid[:, None, :], scores, -1e30),
+                          dim=-1).to(x.dtype)
+    # the pool's dtype and x's meet in their promotion, as in the JAX
+    # package (a bf16 pool under f32 params is read as f32)
+    dt = torch.promote_types(x.dtype, pool.dtype)
+    o_lat = torch.einsum("bhs,bsl->bhl", probs.to(dt), c_seq.to(dt))
+    out = torch.einsum("bhl,lhd->bhd", o_lat,
+                       p["wv_b"].reshape(Lk, H, vd).to(dt))
+    return (out.reshape(B, 1, H * vd) @ p["wo"].to(dt)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

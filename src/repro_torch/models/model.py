@@ -1,12 +1,14 @@
-"""Forward passes of the dense GQA stack (with the MoE feed-forward of
-``moe`` archs, and the vision embeddings of ``vlm`` archs), the ssm
-(Mamba2) stack and the hybrid (zamba2: groups of Mamba2 layers, each
-followed by one shared attention block), ported from
-``repro/models/model.py``.
+"""Forward passes of every stack of the zoo, ported from
+``repro/models/model.py``: the dense GQA stack (with the MoE feed-forward
+of ``moe`` archs, MLA attention where ``use_mla``, the vision embeddings
+of ``vlm`` archs, and the encoder and cross-attention of an
+encoder-decoder), the ssm (Mamba2) stack and the hybrid (zamba2: groups
+of Mamba2 layers, each followed by one shared attention block).
 
   forward_full(...)       — full-sequence forward (one-shot prefill and
                             training; ``use_kernel`` runs its attention
                             through the flash-attention kernel);
+  encode(...)             — the encoder stack of an encoder-decoder;
   lm_loss(...)            — next-token cross-entropy over forward_full;
   decode_step(...)        — one-token decode against the paged KV cache,
                             also returning the last hidden state so the
@@ -15,12 +17,16 @@ followed by one shared attention block), ported from
   prefill_chunk_step(...) — one prompt chunk against the paged cache.
 
 ``lax.scan`` over layers and over the decode horizon becomes a Python
-loop. The paged pools (``[L, NB, bs, KVH, hd]``) and, for an int8/fp8
-pool, their scales (``k_scale``/``v_scale`` ``[L, NB, bs, KVH]``) are
-updated IN PLACE where the JAX package donated them to its jitted steps;
-so is an ssm or hybrid stack's per-slot recurrent state (``ssm_state``
+loop. The paged pools (``[L, NB, bs, KVH, hd]``; MLA's latent pool
+``kv_pool [L, NB, bs, kv_lora + rope]``) and, for an int8/fp8 pool, their
+scales (``k_scale``/``v_scale`` ``[L, NB, bs, KVH]``) are updated IN
+PLACE where the JAX package donated them to its jitted steps; so is an
+ssm or hybrid stack's per-slot recurrent state (``ssm_state``
 ``[L, B, H, P, N]`` f32, ``conv_state`` ``[L, B, W-1, di+2N]``). The
-returned cache dicts hold the same tensors.
+returned cache dicts hold the same tensors. An encoder-decoder's decode
+cache also holds the cross-attention K/V of the encoder output
+(``cross_k``/``cross_v`` ``[L, B, T, KVH, hd]``, from
+:func:`build_cross_cache`), which decode only reads.
 
 The hybrid's params stack its Mamba2 layers ``[G, per, ...]`` (G =
 ``num_layers / hybrid_attn_every`` groups of ``per`` layers) beside one
@@ -42,28 +48,32 @@ from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
 
 
-# the block-addressed cache entries: the pools and a quantized pool's scales
-POOL_KEYS = ("k_pool", "v_pool", "k_scale", "v_scale")
+# the block-addressed cache entries: the GQA pools, a quantized pool's
+# scales and MLA's latent pool
+POOL_KEYS = ("k_pool", "v_pool", "k_scale", "v_scale", "kv_pool")
+ARCH_TYPES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The stacks the port runs: dense GQA (with MoE layers for ``moe``,
-    taking vision embeddings for ``vlm``), the ssm (Mamba2) stack and
-    the hybrid. MLA and encoder-decoder archs are ROADMAP A9."""
-    if cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid") \
-            or cfg.use_mla or cfg.is_encoder_decoder:
+    """The stacks of the JAX package's zoo: dense GQA (with MoE layers
+    for ``moe``, MLA attention where ``use_mla``, taking vision
+    embeddings for ``vlm``), the ssm (Mamba2) stack, the hybrid, and the
+    encoder-decoder (``audio``). Another arch type raises."""
+    if cfg.arch_type not in ARCH_TYPES:
         raise NotImplementedError(
-            f"repro_torch does not run {cfg.arch_type!r} stacks with "
-            f"use_mla={cfg.use_mla} yet (MLA and enc-dec are ROADMAP A9)")
+            f"no stack for arch_type {cfg.arch_type!r}; the zoo has "
+            f"{ARCH_TYPES}")
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """Chunked prefill is the paged-attention stack's (dense, MoE, vlm)."""
+    """Chunked prefill is the GQA paged-attention stack's (dense, MoE,
+    vlm)."""
     check_ported(cfg)
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill covers the dense GQA stack, not "
-            f"{cfg.arch_type!r} (as in the JAX package)")
+            f"{cfg.arch_type!r} with use_mla={cfg.use_mla} "
+            f"(as in the JAX package)")
 
 
 def _index(tree: dict, i: int) -> dict:
@@ -108,11 +118,18 @@ def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor):
 
 def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     return_kv: bool, use_kernel: bool,
-                    modality_embeds: Optional[torch.Tensor] = None):
+                    modality_embeds: Optional[torch.Tensor] = None,
+                    encoder_embeds: Optional[torch.Tensor] = None):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
     kvs or None, the summed aux loss of the MoE layers: f32, 0 without
     them)."""
     check_ported(cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if encoder_embeds is None:
+            raise ValueError("an encoder-decoder's forward needs "
+                             "encoder_embeds [B, T, D]")
+        enc_out = encode(params, cfg, encoder_embeds)
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -129,39 +146,73 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h, kvs = _hybrid_stack_full(params, cfg, h, positions, return_kv,
                                     use_kernel)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
-    ks, vs = [], []
+    kvs = []
     for l in range(cfg.num_layers):
         h, kv, aux_l = _attn_block_full(_layer(params, l), cfg, h,
-                                        positions, return_kv, use_kernel)
+                                        positions, return_kv, use_kernel,
+                                        enc_out)
         if aux_l is not None:
             aux = aux + aux_l
-        if return_kv:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        kvs.append(kv)
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    kvs = (torch.stack(ks), torch.stack(vs)) if return_kv else None
-    return hidden, kvs, aux
+    if not return_kv:
+        return hidden, None, aux
+    if cfg.use_mla:
+        return hidden, torch.stack(kvs), aux
+    return hidden, (torch.stack([k for k, _ in kvs]),
+                    torch.stack([v for _, v in kvs])), aux
 
 
 def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, return_kv: bool,
-                     use_kernel: bool):
-    """One decoder layer (``ln1`` -> GQA -> residual, ``ln2`` -> SwiGLU
-    or MoE -> residual) over a full sequence: (h, (k, v) or None, the
-    MoE's aux loss or None)."""
+                     use_kernel: bool,
+                     enc_out: Optional[torch.Tensor] = None):
+    """One decoder layer (``ln1`` -> GQA or MLA -> residual, with
+    ``enc_out`` ``ln_cross`` -> cross-attention -> residual, ``ln2`` ->
+    SwiGLU or MoE -> residual) over a full sequence: (h, (k, v), MLA's
+    latent entries [B, S, kv_lora + rope] or None, the MoE's aux loss or
+    None). MLA has no kernel path: ``use_kernel`` leaves it dense, as in
+    the JAX package."""
     a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    kv = None
-    if return_kv:
-        a, kv = L.gqa_attention_full(
-            lp["attn"], cfg, a_in, positions, window=cfg.sliding_window,
-            return_kv=True, use_kernel=use_kernel)
+    if cfg.use_mla:
+        res = L.mla_attention_full(lp["attn"], cfg, a_in, positions,
+                                   return_kv=return_kv)
     else:
-        a = L.gqa_attention_full(lp["attn"], cfg, a_in, positions,
-                                 window=cfg.sliding_window,
-                                 use_kernel=use_kernel)
+        res = L.gqa_attention_full(lp["attn"], cfg, a_in, positions,
+                                   window=cfg.sliding_window,
+                                   return_kv=return_kv,
+                                   use_kernel=use_kernel)
+    a, kv = res if return_kv else (res, None)
     h = h + a
+    if enc_out is not None:
+        h = h + L.cross_attention(
+            lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+            *L.cross_kv(lp["cross"], cfg, enc_out))
     m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))
     return h + m, kv, aux
+
+
+def encode(params: dict, cfg: ModelConfig,
+           encoder_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder of an encoder-decoder over the stub frontend's
+    embeddings [B, T, D]: ``num_encoder_layers`` blocks of GQA attention
+    and SwiGLU, then ``encoder_norm``. Its attention is CAUSAL (rope at
+    positions 0..T-1), because the JAX package's encoder calls
+    ``gqa_attention_full(window=None)``, whose mask is causal (ROADMAP
+    C); it stays dense under ``use_kernel``, as there. Returns
+    [B, T, D]."""
+    check_ported(cfg)
+    h = encoder_embeds
+    B, T, _ = h.shape
+    positions = torch.arange(T, device=h.device)[None].expand(B, T)
+    enc = params["encoder"]
+    for l in range(cfg.num_encoder_layers):
+        lp = _index(enc, l)
+        h = h + L.gqa_attention_full(
+            lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+            positions, window=None)
+        h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return L.rms_norm(h, params["encoder_norm"], cfg.norm_eps)
 
 
 def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -214,21 +265,26 @@ def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
 
 def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  return_kv: bool = False, use_kernel: bool = False,
-                 modality_embeds: Optional[torch.Tensor] = None) -> dict:
+                 modality_embeds: Optional[torch.Tensor] = None,
+                 encoder_embeds: Optional[torch.Tensor] = None) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
-    stack, (ssm_state [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N])
-    for the ssm stack, and ((ssm_state, conv_state) each [G, per, B, ...],
-    (k, v) each [G, B, S, KVH, hd]) for the hybrid. ``use_kernel`` runs
-    each attention layer through the flash-attention wrapper, and each
+    stack, MLA's latent entries [L, B, S, kv_lora + rope], (ssm_state
+    [L, B, H, P, N] f32, conv_state [L, B, W-1, di+2N]) for the ssm
+    stack, and ((ssm_state, conv_state) each [G, per, B, ...], (k, v)
+    each [G, B, S, KVH, hd]) for the hybrid. ``use_kernel`` runs each GQA
+    self-attention layer through the flash-attention wrapper, and each
     Mamba2 layer's scan through the SSD scan wrapper (forward only:
-    neither has a backward). Attention is causal within
-    ``cfg.sliding_window``. ``modality_embeds`` [B, n, D] (a ``vision``
-    arch's stub frontend) replace the first n token embeddings.
-    ``aux_loss`` is the sum of the MoE layers' load-balancing losses (f32
-    0 without MoE)."""
+    neither has a backward); MLA and an encoder stay dense. Attention is
+    causal within ``cfg.sliding_window``. ``modality_embeds`` [B, n, D]
+    (a ``vision`` arch's stub frontend) replace the first n token
+    embeddings; an encoder-decoder needs ``encoder_embeds`` [B, T, D],
+    whose :func:`encode` output every decoder layer's cross-attention
+    reads. ``aux_loss`` is the sum of the MoE layers' load-balancing
+    losses (f32 0 without MoE)."""
     hidden, kvs, aux = _forward_hidden(params, cfg, tokens, return_kv,
-                                       use_kernel, modality_embeds)
+                                       use_kernel, modality_embeds,
+                                       encoder_embeds)
     out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
            "aux_loss": aux}
     if return_kv:
@@ -244,14 +300,16 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: dict, window_len: int,
                 use_kernel: bool = False) -> dict:
     """tokens [B, 1]; positions [B]; cache {k_pool, v_pool, block_tables,
-    and k_scale/v_scale for an int8/fp8 pool} for the dense stack,
-    {ssm_state, conv_state, ...} for the ssm stack.
+    and k_scale/v_scale for an int8/fp8 pool} for the dense stack
+    ({kv_pool, block_tables} with MLA; an encoder-decoder's also holds
+    cross_k/cross_v), {ssm_state, conv_state, ...} for the ssm stack.
 
     window_len: cache capacity in tokens (rolling buffer when the
     sequence outgrows it). The pools, or the recurrent state, are written
     in place (the state of every lane, as the JAX package's step does).
     ``use_kernel`` runs the paged attention, or each Mamba2 layer's state
-    update, through the kernel wrappers. Nothing here syncs the host or
+    update, through the kernel wrappers (MLA has no kernel path: it
+    stays dense, as in the JAX package). Nothing here syncs the host or
     sizes a tensor from data, so the step captures in a CUDA graph.
     Returns {logits [B, Vp], hidden [B, D], cache}."""
     check_ported(cfg)
@@ -307,16 +365,20 @@ def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                  window_len: int, use_kernel: bool,
                  writer: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder layer's decode against entry ``idx`` of the paged
-    pools (written in place; ``writer``: ``layers.last_writer``)."""
+    pools (written in place; ``writer``: ``layers.last_writer``) and, for
+    an encoder-decoder, of the cross caches."""
     layer_cache = {"block_tables": cache["block_tables"],
                    "window_len": window_len, "use_kernel": use_kernel}
     for key in POOL_KEYS:
         if key in cache:
             layer_cache[key] = cache[key][idx]
-    a = L.gqa_attention_decode(
-        lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
-        layer_cache, writer=writer)
-    h = h + a
+    attend = L.mla_attention_decode if cfg.use_mla else L.gqa_attention_decode
+    h = h + attend(lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                   positions, layer_cache, writer=writer)
+    if cfg.is_encoder_decoder:
+        h = h + L.cross_attention(
+            lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+            cache["cross_k"][idx], cache["cross_v"][idx])
     return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
 
 
@@ -436,7 +498,8 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
                       num_blocks: Optional[int] = None,
                       kv_dtype: str = "bf16",
-                      device=None) -> dict:
+                      device=None, encoder_len: Optional[int] = None
+                      ) -> dict:
     """Zeroed paged pools [L, NB, bs, KVH, hd] plus default block tables
     (sequence b owns blocks [b*bp, (b+1)*bp)), on ``device`` (CUDA unless
     the caller names the CPU). ``capacity`` = per-sequence token capacity
@@ -448,7 +511,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     shared-attention invocation. Both have per-slot recurrent state:
     zeroed ``ssm_state`` [L, batch, H, P, N] f32 and ``conv_state``
     [L, batch, W-1, di+2N] bf16, whatever the params' dtype (as in the
-    JAX package)."""
+    JAX package). MLA keeps one latent pool ``kv_pool`` [L, NB, bs,
+    kv_lora + rope] (f32 or bf16; a quantized ``kv_dtype`` leaves it
+    bf16, as in the JAX package, whose engine refuses one first). An
+    encoder-decoder adds zeroed bf16 ``cross_k``/``cross_v`` [L, batch,
+    T, KVH, hd] for T = ``encoder_len`` (default: the config's
+    ``encoder_seq_len``, else 1024), which the caller replaces with
+    :func:`build_cross_cache`'s."""
     check_ported(cfg)
     device = resolve_device(device)
     bs = cfg.kv_block_size
@@ -457,9 +526,15 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     cache = {"block_tables": (torch.arange(batch * bp, dtype=torch.int32,
                                            device=device).reshape(batch, bp)
                               % max(nb, 1))}
-    if cfg.attention_layer_ids():
-        shape = (len(cfg.attention_layer_ids()), nb, bs, cfg.num_kv_heads,
-                 cfg.head_dim)
+    la = len(cfg.attention_layer_ids())
+    if cfg.use_mla:
+        cache["kv_pool"] = torch.zeros(
+            (la, nb, bs, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+            dtype=(kv_quant.kv_pool_dtype(kv_dtype)
+                   if kv_dtype in ("f32", "bf16") else torch.bfloat16),
+            device=device)
+    elif la:
+        shape = (la, nb, bs, cfg.num_kv_heads, cfg.head_dim)
         dt = kv_quant.kv_pool_dtype(kv_dtype)
         cache["k_pool"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v_pool"] = torch.zeros(shape, dtype=dt, device=device)
@@ -476,13 +551,30 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
             (L_, batch, cfg.ssm_conv_width - 1,
              cfg.d_inner + 2 * cfg.ssm_state_size),
             dtype=torch.bfloat16, device=device)
+    if cfg.is_encoder_decoder:
+        T = encoder_len or cfg.encoder_seq_len or 1024
+        for key in ("cross_k", "cross_v"):
+            cache[key] = torch.zeros((la, batch, T, cfg.num_kv_heads,
+                                      cfg.head_dim),
+                                     dtype=torch.bfloat16, device=device)
     return cache
+
+
+def build_cross_cache(params: dict, cfg: ModelConfig,
+                      enc_out: torch.Tensor):
+    """Every decoder layer's cross-attention K/V of the encoder output
+    [B, T, D]: (cross_k, cross_v) each [L, B, T, KVH, hd], in the
+    params' dtype."""
+    ks, vs = zip(*(L.cross_kv(_layer(params, l)["cross"], cfg, enc_out)
+                   for l in range(cfg.num_layers)))
+    return torch.stack(ks), torch.stack(vs)
 
 
 def write_prefill_kv(cfg: ModelConfig, cache: dict, kvs,
                      seq_lens: torch.Tensor) -> dict:
     """Scatter prefill K/V (from forward_full(return_kv=True), each
-    [L, B, S, KVH, hd]) into the paged pools in place. Assumes
+    [L, B, S, KVH, hd], or MLA's latent entries [L, B, S, kv_lora +
+    rope]) into the paged pools in place. Assumes
     prompt_len <= capacity (slot = position). A quantized pool (the cache
     holds ``k_scale``/``v_scale``) takes each token's codes and scale,
     quantized against its own per-head absmax: the same bytes the chunked
@@ -503,20 +595,25 @@ def write_prefill_kv(cfg: ModelConfig, cache: dict, kvs,
 
 
 def write_pool_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
-    """Scatter attention K/V (k, v) each [La, B, S, KVH, hd] into the
-    paged pools of ``cache`` (with its block tables) in place, slot =
-    position; the attention half of :func:`write_prefill_kv`."""
+    """Scatter attention K/V (k, v) each [La, B, S, KVH, hd], or MLA's
+    latent entries [La, B, S, kv_lora + rope], into the paged pools of
+    ``cache`` (with its block tables) in place, slot = position; the
+    attention half of :func:`write_prefill_kv`."""
     bt = cache["block_tables"].long()
     bs = cfg.kv_block_size
-    k, v = kvs
-    Bn, S = k.shape[1], k.shape[2]
-    pos = torch.arange(S, device=k.device)[None].expand(Bn, S)
-    if k.device.type == "cpu":
+    first = kvs if cfg.use_mla else kvs[0]
+    Bn, S = first.shape[1], first.shape[2]
+    pos = torch.arange(S, device=first.device)[None].expand(Bn, S)
+    if first.device.type == "cpu":
         L.check_index(pos // bs, bt.shape[1], "prefill block index")
     block_ids = bt.gather(1, pos // bs)   # [B, S]
     offs = pos % bs
     # positions past a row's length are harmless: attention masks by length
-    for name, vals in (("k", k), ("v", v)):
+    if cfg.use_mla:
+        kv_quant.write_slots(cache["kv_pool"], None,
+                             (slice(None), block_ids, offs), kvs)
+        return cache
+    for name, vals in (("k", kvs[0]), ("v", kvs[1])):
         kv_quant.write_slots(cache[f"{name}_pool"], cache.get(f"{name}_scale"),
                              (slice(None), block_ids, offs), vals)
     return cache
@@ -525,8 +622,8 @@ def write_pool_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
 def copy_kv_block(cfg: ModelConfig, cache: dict, src: int, dst: int) -> dict:
     """Device-side copy of one paged KV block, in place:
     pool[:, dst] = pool[:, src] (the copy-on-write step of prefix
-    sharing). A quantized pool's scales are block-addressed too and ride
-    the copy."""
+    sharing), for the GQA pools or MLA's latent pool. A quantized pool's
+    scales are block-addressed too and ride the copy."""
     for key in POOL_KEYS:
         if key in cache:
             cache[key][:, dst] = cache[key][:, src]
@@ -572,12 +669,14 @@ def _chunked_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, aux_weight: float = 0.01,
             use_kernel: bool = False,
-            modality_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            modality_embeds: Optional[torch.Tensor] = None,
+            encoder_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token NLL over the labels inside [0, vocab_size) (the
     others are masked), plus ``aux_weight`` times the MoE layers' summed
-    load-balancing loss (0 without MoE). tokens/labels [B, S]."""
+    load-balancing loss (0 without MoE). tokens/labels [B, S]; an
+    encoder-decoder's decoder reads ``encoder_embeds`` [B, T, D]."""
     hidden, _, aux = _forward_hidden(params, cfg, tokens, False, use_kernel,
-                                     modality_embeds)
+                                     modality_embeds, encoder_embeds)
     valid = (labels >= 0) & (labels < cfg.vocab_size)
     n = valid.sum().clamp(min=1)
     if tokens.shape[1] > CHUNKED_CE_THRESHOLD:

@@ -28,7 +28,11 @@ What differs is the device side:
     state of its Mamba2 layers. Like the JAX engine, both fall back to
     one-shot prefill, switch the prefix cache off, and refuse an
     int8/fp8 pool. The MoE (mixtral) and vlm (internvl2, served as
-    text) stacks serve as the dense one does;
+    text) stacks serve as the dense one does. MLA (deepseek-v2) serves
+    its latent pool dense, with the plain scorer, one-shot prefill and
+    no prefix cache, as the JAX engine does; an encoder-decoder is
+    refused at construction, since no engine path of the JAX package
+    feeds encoder embeddings;
   * the engine RNG is a ``torch.Generator`` on the engine's device;
   * on a CUDA engine each ``(horizon, lanewise)`` decode horizon is one
     device call, as the JAX engine's jitted horizon is: a CUDA graph,
@@ -107,17 +111,27 @@ def _default_kv_dtype():
     return os.environ.get("REPRO_KV_DTYPE", "").strip().lower() or "bf16"
 
 
-def resolve_use_kernel(setting, device: torch.device) -> bool:
+def resolve_use_kernel(setting, cfg: ModelConfig,
+                       device: torch.device) -> bool:
     """Resolve ``EngineConfig.use_kernel`` (False / True / "auto") to the
     bool the steps consume. "auto" picks the CUDA kernels on a CUDA
     engine and the dense path on a CPU engine (where the kernel wrappers
     would only run their plain versions); ``True`` on a CPU engine runs
-    those plain versions, as interpret mode does for the JAX package."""
+    those plain versions, as interpret mode does for the JAX package.
+    The kernels cover GQA paged attention: for MLA "auto" resolves to the
+    dense path on every device and ``True`` raises, as in the JAX
+    package."""
     if setting is False or setting is None:
         return False
     if setting not in (True, "auto"):
         raise ValueError(
             f"use_kernel must be True, False or 'auto', got {setting!r}")
+    if cfg.use_mla:
+        if setting == "auto":
+            return False
+        raise NotImplementedError(
+            "use_kernel=True: MLA's absorbed latent decode has no kernel "
+            "path")
     if setting == "auto":
         return device.type == "cuda"
     return True
@@ -248,6 +262,12 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported to repro_torch yet (ROADMAP A10)")
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "the engine serves decoder-only stacks: no engine path "
+                "feeds an encoder-decoder's encoder embeddings (the JAX "
+                "engine's prefill fails on forward_full's missing "
+                "encoder_embeds)")
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
         self.cfg = cfg
@@ -276,7 +296,8 @@ class Engine:
         self._kv_cache = None
         self._pool: Optional[dict] = None   # the device pool, for life
         self._eager_decode = _eager_decode
-        self.use_kernel = resolve_use_kernel(ecfg.use_kernel, self.device)
+        self.use_kernel = resolve_use_kernel(ecfg.use_kernel, cfg,
+                                             self.device)
         if ecfg.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         self.horizon_fallbacks = 0
@@ -514,7 +535,8 @@ class Engine:
         """forward_full(return_kv=True) output of a batch-1 prefill ->
         (paged attention KV | None, per-slot recurrent state | None). The
         hybrid has both: its state comes stacked [G, per, ...] and goes
-        into the slot flat over its ``num_layers`` Mamba2 layers."""
+        into the slot flat over its ``num_layers`` Mamba2 layers. MLA's
+        paged entries are one latent tensor [L, 1, S, kv_lora + rope]."""
         if self.cfg.arch_type == "ssm":
             ss, cs = kvs
             return None, (ss[:, 0], cs[:, 0])
@@ -523,6 +545,8 @@ class Engine:
             ssf = ss.reshape(-1, *ss.shape[2:])
             csf = cs.reshape(-1, *cs.shape[2:])
             return (k[:, :1], v[:, :1]), (ssf[:, 0], csf[:, 0])
+        if self.cfg.use_mla:
+            return kvs[:, :1], None
         k, v = kvs
         return (k[:, :1], v[:, :1]), None
 

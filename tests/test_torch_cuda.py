@@ -1046,3 +1046,130 @@ def test_moe_and_vlm_engine_kernel_path_matches_dense_on_card(gen, arch):
                                **TOL[torch.float32])
     torch.testing.assert_close(got["aux_loss"], want["aux_loss"],
                                **TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2 (MLA latent pool, MoE with shared experts) and seamless-m4t
+# (encoder-decoder: K1a and K3 at hd 64 with 16 query heads over 16)
+# ---------------------------------------------------------------------------
+
+def _mla_serve(cfg, params, scorer, device, eager=False):
+    """Greedy STEP over 8 traces of one prompt at deepseek's smoke config
+    ("auto": dense, the plain scorer), the 16-block pool pruning."""
+    ecfg = te.EngineConfig(
+        max_batch=8, num_blocks=16, capacity=128, max_new_tokens=40,
+        sampling=SamplingParams(temperature=0.0, top_k=0, top_p=1.0,
+                                max_new_tokens=40),
+        use_kernel="auto", decode_horizon=4, faults=None, kv_dtype="f32")
+    eng = TickCountingEngine(params, cfg, ecfg, make_policy("step"),
+                             scorer_params=scorer, device=device,
+                             _eager_decode=eager)
+    ops.reset_launch_counts()
+    res = eng.serve(get_tokenizer().encode("3+5-2=", add_bos=True), 8)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert eng.pool_drained() and not eng.use_kernel
+    assert not eng.fused_scorer
+    return eng, res, ops.launch_counts()
+
+
+def test_deepseek_graphed_engine_matches_eager_engine(gen):
+    """deepseek's smoke config on the card, f32 params without EOS: the
+    graphed engine (one replay per tick) gives the eager engine's tokens,
+    statuses, prunes and step scores, and neither launches K1 or K2 (MLA
+    has no kernel path, so the scorer is the plain one)."""
+    cfg = serving_config("deepseek-v2-236b")
+    params = _no_eos(_f32(init_params(cfg, gen)), cfg)
+    scorer = init_scorer(gen, cfg.d_model)
+    e_eng, e_res, e_counts = _mla_serve(cfg, params, scorer, "cuda", True)
+    g_eng, g_res, g_counts = _mla_serve(cfg, params, scorer, "cuda")
+    assert g_counts["decode_graph_replays"] == g_eng.ticks == e_eng.ticks > 0
+    for counts in (e_counts, g_counts):
+        assert all(n == 0 for k, n in counts.items()
+                   if not k.startswith("decode_graph"))
+    _same_greedy(g_res, e_res)
+    for tg, te_ in zip(g_res.traces, e_res.traces):
+        assert tg.step_scores == te_.step_scores
+
+
+def test_deepseek_cuda_engine_matches_cpu_engine(gen):
+    """The same serve on the CPU engine and on the card from the same f32
+    params: identical greedy tokens, statuses and prunes, step scores
+    within 1e-4 (the two devices sum in other orders)."""
+    cfg = serving_config("deepseek-v2-236b")
+    params = _no_eos(_f32(init_params(cfg, gen)), cfg)
+    scorer = init_scorer(gen, cfg.d_model)
+    _, c_res, _ = _mla_serve(cfg, params, scorer, "cpu")
+    _, g_res, _ = _mla_serve(cfg, params, scorer, "cuda")
+    assert g_res.num_pruned == c_res.num_pruned > 0
+    for tg, tc in zip(g_res.traces, c_res.traces):
+        assert tg.output_tokens == tc.output_tokens
+        assert tg.status == tc.status
+        for a, b in zip(tg.step_scores, tc.step_scores):
+            assert abs(a - b) <= 1e-4
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_seamless_shape(gen, pool, dtype):
+    """seamless-m4t's decoder: 16 query heads over 16 kv heads (group 1)
+    at hd 64, 8 lanes of 65-128 slots over 8-page rows, every pool
+    dtype."""
+    B, KVH, hd, bp = 8, 16, 64, 8
+    lens = torch.tensor([0, 1, 65, 80, 96, 100, 127, 128],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(B, KVH, hd, generator=gen, device="cuda").to(dtype)
+    kp, vp, bt, scales = _any_pools(gen, B, bp, KVH, hd, pool)
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=hd ** -0.5,
+                             **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, hd ** -0.5,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_seamless_kernel_paths_match_dense_on_card(gen):
+    """seamless-m4t's smoke config, f32 params, encoder embeddings of its
+    32 frames: ``forward_full(use_kernel=True)`` (K3 per decoder layer,
+    the encoder dense) against the dense forward at 1e-4; then a 12-token
+    prefill, ``build_cross_cache`` and 6 decode steps through K1a (one
+    per decoder layer and step) against dense decode steps, logits at
+    1e-4 at every step."""
+    cfg = serving_config("seamless-m4t-large-v2")
+    params = _f32(init_params(cfg, gen))
+    B, S = 2, 12
+    enc = 0.5 * torch.randn(B, cfg.encoder_seq_len, cfg.d_model,
+                            generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 6), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = tm.forward_full(params, cfg, tokens, encoder_embeds=enc,
+                          use_kernel=True)
+    counts = ops.launch_counts()
+    want = tm.forward_full(params, cfg, tokens, encoder_embeds=enc)
+    assert counts["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got["logits"], want["logits"],
+                               **TOL[torch.float32])
+    out = tm.forward_full(params, cfg, tokens[:, :S], encoder_embeds=enc,
+                          return_kv=True)
+    cross = tm.build_cross_cache(params, cfg, tm.encode(params, cfg, enc))
+    caches = {}
+    for use_kernel in (False, True):
+        c = tm.write_prefill_kv(cfg, tm.init_decode_cache(
+            cfg, B, 64, kv_dtype="f32", device="cuda"), out["kvs"],
+            torch.full((B,), S, dtype=torch.int32, device="cuda"))
+        c["cross_k"], c["cross_v"] = cross
+        caches[use_kernel] = c
+    for i in range(6):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        logits = {k: tm.decode_step(params, cfg, tokens[:, S + i:S + i + 1],
+                                    pos, caches[k], window_len=64,
+                                    use_kernel=k)["logits"]
+                  for k in (False, True)}
+        assert ops.launch_counts()["paged_attention_decode"] == \
+            cfg.num_layers
+        torch.testing.assert_close(logits[True], logits[False],
+                                   **TOL[torch.float32])

@@ -148,9 +148,10 @@ def test_engine_device_rules(setup, monkeypatch):
                   te.EngineConfig(faults=None, kv_dtype="int4"), policy,
                   device="cpu")
     cpu = torch.device("cpu")
-    assert te.resolve_use_kernel("auto", cpu) is False
-    assert te.resolve_use_kernel(True, cpu) is True
-    assert te.resolve_use_kernel("auto", torch.device("cuda")) is True
+    cfg = setup["cfg"]
+    assert te.resolve_use_kernel("auto", cfg, cpu) is False
+    assert te.resolve_use_kernel(True, cfg, cpu) is True
+    assert te.resolve_use_kernel("auto", cfg, torch.device("cuda")) is True
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tev.evaluate_method("cot", setup["tp"], setup["cfg"],
                             tev.make_problems(1), 1, ecfg=ecfg)

@@ -82,11 +82,15 @@ def test_serving_config_matches():
                   "head_dim", "d_ff", "vocab_size", "qk_norm", "rope_theta",
                   "tie_embeddings", "kv_block_size", "norm_eps"):
         assert getattr(tc, field) == getattr(jc, field), field
-    full_j = j_registry.get_config("qwen3-4b-thinking")
-    full_t = t_registry.get_config("qwen3-4b-thinking")
-    assert full_t.__dict__ == full_j.__dict__
-    with pytest.raises(KeyError, match="ROADMAP"):
-        t_registry.get_config("deepseek-v2-236b")
+    # every arch of the zoo, the last two ported included, field by field
+    assert set(t_registry.ALL_ARCHS) == set(j_registry.ALL_ARCHS)
+    for arch in ("qwen3-4b-thinking", "deepseek-v2-236b",
+                 "seamless-m4t-large-v2"):
+        full_j = j_registry.get_config(arch)
+        full_t = t_registry.get_config(arch)
+        assert full_t.__dict__ == full_j.__dict__
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_registry.get_config("llama-7b")
 
 
 @pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8", "fp8"])

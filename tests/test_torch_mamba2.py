@@ -10,8 +10,6 @@ another order); the model's logits and states at 1e-4, as
 ``tests/test_torch_model.py`` holds the dense f32 forward (two layers of
 the mixer, each with an f32 matmul over d_model and the chunked scan).
 """
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -28,11 +26,13 @@ from repro.models import layers as jl  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.models.init import init_params as j_init_params  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
+from repro_torch.core.pruning import make_policy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.models.init import init_params, padded_vocab  # noqa: E402
+from repro_torch.serving import engine as te  # noqa: E402
 from torch_parity import pair, to_np  # noqa: E402
 
 ARCH = "mamba2-2.7b"
@@ -104,25 +104,28 @@ def test_params_layout_matches_jax_and_the_bridge(models):
 
 
 def test_unported_stacks_still_raise(models):
-    """MoE with MLA (deepseek-v2's shape), MLA and enc-dec stacks raise
-    naming ROADMAP A9; the chunked prefill step stays the paged-attention
-    stacks', as in the JAX package."""
+    """What the zoo still refuses, as the JAX package does: the kernels
+    for MLA (``use_kernel=True`` raises), chunked prefill beyond the GQA
+    paged-attention stacks (ssm, MLA, encoder-decoder), an
+    encoder-decoder engine, and an arch outside the zoo."""
     _, cfg, _, tp = models
-    for bad in (dataclasses.replace(cfg, is_encoder_decoder=True),
-                dataclasses.replace(cfg, arch_type="moe", num_experts=4,
-                                    use_mla=True),
-                dataclasses.replace(cfg, use_mla=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            init_params(bad, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="A9"):
-            tm.forward_full(tp, bad, torch.zeros((1, 4), dtype=torch.int32))
-    assert not tm.supports_chunked_prefill(cfg)
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        tm.prefill_chunk_step(tp, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                              torch.zeros((1, 4), dtype=torch.int32),
-                              torch.ones((1, 4), dtype=torch.bool), {}, 64)
-    with pytest.raises(KeyError, match="A9"):
-        t_registry.get_config("deepseek-v2-236b")
+    mla = t_registry.serving_config("deepseek-v2-236b")
+    encdec = t_registry.serving_config("seamless-m4t-large-v2")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        te.resolve_use_kernel(True, mla, torch.device("cpu"))
+    for bad in (cfg, mla, encdec):
+        assert not tm.supports_chunked_prefill(bad)
+        with pytest.raises(NotImplementedError, match="dense GQA"):
+            tm.prefill_chunk_step(
+                tp, bad, torch.zeros((1, 4), dtype=torch.int32),
+                torch.zeros((1, 4), dtype=torch.int32),
+                torch.ones((1, 4), dtype=torch.bool), {}, 64)
+    with pytest.raises(NotImplementedError, match="encoder"):
+        te.Engine(init_params(encdec, torch.Generator().manual_seed(0)),
+                  encdec, te.EngineConfig(faults=None),
+                  make_policy("sc"), device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_registry.get_config("llama-7b")
 
 
 # ---------------------------------------------------------------------------
