@@ -63,6 +63,20 @@ Phases, each printing one JSON line:
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay, and its kernels
                 by device time (torch.profiler);
+     launch_steps — the launchers' steps (``repro_torch.launch.steps``)
+                at full width: a 2048-token prefill of 16 lanes, its K/V
+                in contiguous caches laid out by ``kv_cache_specs``
+                (decode_32k cut to 16 x 4096), 32 decode steps held to
+                the teacher-forced forward;
+     launch_train — qwen3's params freed, ``launch.train.main`` at full
+                width (B 8 in 4 microbatches, remat): losses, seconds per
+                step, peak memory;
+     launch_serve — ``launch.artifacts`` trains the serving artifacts on
+                the card, then ``launch.serve.main`` runs SC and STEP
+                under ``--blocks 12`` (STEP prunes and never waits, SC
+                preempts and waits), an online chunked run and an int8
+                run: K1a, K1b, K1c and K2 at the serving config's shapes,
+                graph captures and their seconds;
  11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
                 full width (64 layers, random seeded weights, per-slot
                 recurrent state, no KV pool) through ``Engine.serve``,
@@ -133,7 +147,10 @@ window and K2 at D = 4096; the times phase times them
 counting only the visible (query, key) pairs and the pages that hold
 them. Both phases check and time K1a at decode_seamless's shape and K3 at
 forward_seamless's (``paged_attention_decode_seamless``,
-``flash_attention_seamless``).
+``flash_attention_seamless``), and K1a, K1b, K1c (int8) and K2 at
+launch_serve's (the serving config: 4 query heads over 2 at hd 64, 16
+lanes of 16-page rows, chunks of 8, D 256; the ``*_launch`` rows and
+``step_score_d256``).
 
 The line before the last is the kernel table as one JSON object, the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -146,6 +163,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -654,6 +672,13 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     # decode_seamless's shape: 8 lanes of 65-128 slots over 8-page rows
     check_paged(pa, kvq, g, errs, SEAMLESS_B, 16, 16, 64,
                 SEAMLESS_CAPACITY // 16, SEAMLESS_LENS, [], [], "_seamless")
+    # the serving launcher's model (serving_config: H 4, KVH 2, hd 64) at
+    # launch_serve's shapes: 16 lanes over 16-page rows (capacity 256),
+    # chunks of 8
+    lens_launch = [0, 1] + [20 + (236 * i) // 13 for i in range(14)]
+    check_paged(pa, kvq, g, errs, 16, 4, 2, 64, 16, lens_launch,
+                [(8, 8, 8), (8, 40, 3)], [(8, 8, 8), (8, 40, 3)],
+                "_launch")
     # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80;
     # then forward_mixtral's S = 8192 under the 4096 window, and
     # forward_seamless's decoder (16 heads, hd 64, S = 512)
@@ -665,8 +690,9 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     # f32; then the dense archs' widths over the dense_archs phase's 8
     # lanes: D = 2048 (qwen3-1.7b, internvl2-2b), 3072 (phi4-mini,
     # starcoder2) and 6144 (granite-20b); and mixtral-8x7b's D = 4096 over
-    # the serve's 16 lanes
-    for B, D in ((64, 2560), (8, 2048), (8, 3072), (8, 6144), (16, 4096)):
+    # the serve's 16 lanes; the serving launcher's D = 256 at 16 lanes
+    for B, D in ((64, 2560), (8, 2048), (8, 3072), (8, 6144), (16, 4096),
+                 (16, 256)):
         w1 = torch.randn(D, 512, generator=g, device="cuda") * (2.0 / D) ** .5
         b1 = torch.randn(512, generator=g, device="cuda") * 0.1
         w2 = torch.randn(512, 1, generator=g, device="cuda") * 512 ** -0.5
@@ -2217,6 +2243,29 @@ def time_ssm_decode(smd, g, N):
         flops=5 * ssm.numel() + 2 * Wd * Bd * Cd, dtype=torch.float32)
 
 
+def time_score(ss, g, B, D, split=False):
+    """K2 over B lanes of bf16 hidden states of width D, f32 weights
+    (hidden width 512); ``split`` adds the device time of each of its
+    launches (torch.profiler)."""
+    Hd = 512
+    h = torch.randn(B, D, generator=g, device="cuda").to(torch.bfloat16)
+    w1 = torch.randn(D, Hd, generator=g, device="cuda") * (2.0 / D) ** 0.5
+    b1 = torch.zeros(Hd, device="cuda")
+    w2 = torch.randn(Hd, 1, generator=g, device="cuda") * Hd ** -0.5
+    b2 = torch.zeros(1, device="cuda")
+    row = dict(
+        ms=time_cuda(lambda: ss.step_score(h, w1, b1, w2, b2)),
+        plain_ms=time_cuda(lambda: ss.step_score_plain(h, w1, b1, w2, b2)),
+        library_ms=None,
+        shape=f"B={B} D={D} hidden={Hd} bf16 hidden, f32 weights",
+        bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
+        flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
+    if split:
+        row["launches_ms"] = device_split(
+            lambda: ss.step_score(h, w1, b1, w2, b2))
+    return row
+
+
 def phase_times(pa, ss, fa, sd, kvq, smd):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf = torch.bfloat16
@@ -2280,43 +2329,24 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
         SEAMLESS_LENS[1:] + [SEAMLESS_CAPACITY])
     rows["flash_attention_seamless"] = time_flash(fa, g, 16, 64, bf,
                                                   S=SEAMLESS_S)
+    # the serving launcher's model (H 4, KVH 2, hd 64): K1a/K1c over the
+    # tight-pool runs' 16 lanes of 16-page rows (prompt + up to 96 new
+    # tokens), K1b/K1c's prefill face at a chunk of 8 over 16 tokens
+    lens_launch = [24 + (96 * i) // (B - 1) for i in range(B)]
+    for kv_dtype in ("bf16", "int8"):
+        tag = "" if kv_dtype == "bf16" else "_int8"
+        rows[f"paged_attention_decode{tag}_launch"] = time_decode(
+            pa, kvq, g, B, 4, 2, 64, 16, lens_launch, kv_dtype)
+        rows[f"paged_attention_prefill{tag}_launch"] = time_prefill(
+            pa, kvq, g, 4, 2, 64, 16, kv_dtype, C=8, prefix=16)
 
-    # K2 at the decode batch: 16 lanes, D = 2560, bf16 hidden
-    D, Hd = 2560, 512
-    h = torch.randn(B, D, generator=g, device="cuda").to(bf)
-    w1 = torch.randn(D, Hd, generator=g, device="cuda") * (2.0 / D) ** 0.5
-    b1 = torch.zeros(Hd, device="cuda")
-    w2 = torch.randn(Hd, 1, generator=g, device="cuda") * Hd ** -0.5
-    b2 = torch.zeros(1, device="cuda")
-    rows["step_score"] = dict(
-        ms=time_cuda(lambda: ss.step_score(h, w1, b1, w2, b2)),
-        plain_ms=time_cuda(lambda: ss.step_score_plain(h, w1, b1, w2, b2)),
-        library_ms=None,
-        launches_ms=device_split(lambda: ss.step_score(h, w1, b1, w2, b2)),
-        shape=f"B={B} D={D} hidden={Hd} bf16 hidden, f32 weights",
-        bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
-        flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
-    # mixtral-8x7b's D = 4096 at the serve's 16 lanes
-    D4 = 4096
-    h4 = torch.randn(B, D4, generator=g, device="cuda").to(bf)
-    w14 = torch.randn(D4, Hd, generator=g, device="cuda") * (2.0 / D4) ** .5
-    rows["step_score_d4096"] = dict(
-        ms=time_cuda(lambda: ss.step_score(h4, w14, b1, w2, b2)),
-        plain_ms=time_cuda(lambda: ss.step_score_plain(h4, w14, b1, w2, b2)),
-        library_ms=None,
-        shape=f"B={B} D={D4} hidden={Hd} bf16 hidden, f32 weights",
-        bytes=h4.numel() * 2 + (w14.numel() + 2 * Hd + 1 + B) * 4,
-        flops=2 * B * D4 * Hd + 4 * B * Hd, dtype=torch.float32)
-    # the same at the kernels phase's 64 lanes (this line only)
-    h64 = torch.randn(64, D, generator=g, device="cuda").to(bf)
-    rows["step_score_b64"] = dict(
-        ms=time_cuda(lambda: ss.step_score(h64, w1, b1, w2, b2)),
-        plain_ms=time_cuda(lambda: ss.step_score_plain(h64, w1, b1, w2,
-                                                       b2)),
-        library_ms=None,
-        shape=f"B=64 D={D} hidden={Hd} bf16 hidden, f32 weights",
-        bytes=h64.numel() * 2 + (w1.numel() + 2 * Hd + 1 + 64) * 4,
-        flops=2 * 64 * D * Hd + 4 * 64 * Hd, dtype=torch.float32)
+    # K2 at the decode batch: 16 lanes, D = 2560 (qwen3, mamba2, zamba2),
+    # 4096 (mixtral) and 256 (the serving launcher's model); D = 2560 at
+    # the kernels phase's 64 lanes (this line only)
+    rows["step_score"] = time_score(ss, g, B, 2560, split=True)
+    rows["step_score_d4096"] = time_score(ss, g, B, 4096)
+    rows["step_score_d256"] = time_score(ss, g, B, 256)
+    rows["step_score_b64"] = time_score(ss, g, 64, 2560)
 
     # K4 and ssm_decode at mamba2's state (N = 128) and zamba2's (N = 64):
     # the forward phases' scan and the serve phases' decode batch
@@ -2685,6 +2715,269 @@ def phase_step(rt, cfg, params, name="step"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the launchers (repro_torch.launch)
+# ---------------------------------------------------------------------------
+
+# the decode_32k shape cut to one card: B 128 x 32768 slots take 618 GB of
+# K/V at qwen3's 36 layers, B 16 x 4096 take 9.66 GB
+LAUNCH_B, LAUNCH_CAPACITY, LAUNCH_PROMPT, LAUNCH_STEPS = 16, 4096, 2048, 32
+# the serving launcher's LM training steps (REPRO_TRAIN_STEPS): the
+# default 4000 took 102-150 s on the card's host (host-bound small
+# launches), more than the launcher phases' share of the time limit
+LAUNCH_TRAIN_STEPS = 2000
+# the serving launcher's runs: the paper's memory-pressure pair (16
+# traces over 11 free blocks of 16 slots), online serving with chunked
+# prefill, and an int8 pool
+LAUNCH_RUNS = (
+    ("sc", ["--method", "sc", "--blocks", "12", "--problems", "4",
+            "--traces", "16"]),
+    ("step", ["--method", "step", "--blocks", "12", "--problems", "4",
+              "--traces", "16"]),
+    ("step_online", ["--method", "step", "--batched", "--arrival-rate",
+                     "2.0", "--chunk", "8", "--max-tokens-per-step", "32",
+                     "--stream"]),
+    ("step_int8", ["--method", "step", "--kv-dtype", "int8", "--chunk",
+                   "8"]),
+)
+
+
+class CaptureTimer:
+    """Sums the seconds of every decode-graph capture made inside the
+    ``with`` block (engines built inside a call, as ``evaluate_method``
+    builds one per problem)."""
+
+    def __init__(self, cuda_graph):
+        self.cls, self.seconds = cuda_graph.DecodeGraph, 0.0
+
+    def __enter__(self):
+        orig = self.orig = self.cls._capture
+
+        def timed(graph, *args):
+            orig(graph, *args)
+            self.seconds += graph.capture_s
+        self.cls._capture = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._capture = self.orig
+
+
+def phase_launch_serve(rt, ops):
+    """The serving launcher as a user runs it: ``launch.artifacts`` trains
+    the reasoning LM (``LAUNCH_TRAIN_STEPS``) and builds its step scorer
+    on the card, then ``launch.serve.main`` runs each of ``LAUNCH_RUNS``
+    in-process on those artifacts (one engine per problem offline, one
+    for all online), kernels on ("auto"). Under the tight pool STEP
+    prunes and waits 0 s while SC preempts and waits; the STEP runs
+    launch K1a and K2, the chunked run K1b, the int8 run K1c."""
+    from repro_torch.launch import artifacts, serve
+    from repro_torch.serving import cuda_graph
+    os.environ["REPRO_TRAIN_STEPS"] = str(LAUNCH_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info = artifacts.build_artifacts(verbose=False)
+    torch.cuda.synchronize()
+    out = {"train_steps": info["train_steps"], "build_s":
+           time.perf_counter() - t0, "train_s": info["train_s"],
+           "train_final_loss": info["train_final_loss"],
+           "build_scorer_s": info["build_scorer_s"],
+           "sampled_correct_rate": info["scorer_info"][
+               "sampled_correct_rate"],
+           "scorer_info": info["scorer_info"],
+           "build_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(math.isfinite(info["train_final_loss"]), "artifacts: train loss")
+    runs, total = {}, {}
+    for name, argv in LAUNCH_RUNS:
+        gc.collect()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with CaptureTimer(cuda_graph) as cap:
+            t0 = time.perf_counter()
+            res = serve.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        runs[name] = {
+            "argv": " ".join(argv), "acc": res.accuracy,
+            "avg_tokens": res.avg_tokens,
+            "avg_latency_s": res.avg_latency_s, "wait_s": res.total_wait_s,
+            "pruned": res.num_pruned, "preemptions": res.num_preemptions,
+            "wall_s": wall, "launches": launches,
+            "captures": launches["decode_graph_captures"],
+            "replays": launches["decode_graph_replays"],
+            "capture_s": cap.seconds}
+        if res.serving is not None:
+            runs[name]["serving"] = {k: res.serving[k] for k in (
+                "ttft_s", "tpot_s", "e2e_s", "throughput_tok_per_s")}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(launches["decode_graph_replays"] > 0
+              and launches["decode_graph_captures"] > 0,
+              f"launch_serve {name}: no decode graph replayed")
+        if name != "sc":
+            check(launches["paged_attention_decode"
+                           + ("_quant" if name == "step_int8" else "")] > 0
+                  and launches["step_score"] > 0,
+                  f"launch_serve {name}: K1a or K2 never launched")
+    sc, step = runs["sc"], runs["step"]
+    check(sc["preemptions"] > 0 and sc["wait_s"] > 0,
+          f"launch_serve sc: preempt {sc['preemptions']} wait "
+          f"{sc['wait_s']}")
+    check(step["wait_s"] == 0.0 and step["pruned"] > 0
+          and step["preemptions"] == 0,
+          f"launch_serve step: wait {step['wait_s']} pruned "
+          f"{step['pruned']} preempt {step['preemptions']}")
+    check(runs["step_online"]["launches"]["paged_attention_prefill"] > 0,
+          "launch_serve step_online: K1b never launched")
+    check(runs["step_int8"]["launches"]["paged_attention_prefill_quant"] > 0,
+          "launch_serve step_int8: K1c's prefill face never launched")
+    out.update(runs=runs, launches=total)
+    emit("launch_serve", **out)
+    return out
+
+
+def phase_launch_steps(rt, ops, cfg, params):
+    """``launch.steps`` at full width: ``make_prefill_step`` over a
+    ``LAUNCH_PROMPT``-token prompt in each of ``LAUNCH_B`` lanes, its K/V
+    written into contiguous caches laid out as ``kv_cache_specs``'s
+    decode_32k cut to ``LAUNCH_B`` x ``LAUNCH_CAPACITY``, then
+    ``LAUNCH_STEPS`` teacher-forced ``make_decode_step`` calls (dense, as
+    in the JAX package: no kernel reads a contiguous cache). Each step's
+    logits are held to the teacher-forced ``forward_full`` as
+    ``forward_kernel``'s are (within 5% of the step's largest logit: both
+    paths round every activation to bf16, at other places), and the
+    greedy tokens agree wherever the reference's top two logits lie
+    further apart than twice the step's largest error."""
+    from repro_torch.launch import steps
+    Reg, M = rt["registry"], rt["model"]
+    B, cap, P, n = LAUNCH_B, LAUNCH_CAPACITY, LAUNCH_PROMPT, LAUNCH_STEPS
+    specs = Reg.kv_cache_specs(cfg, "decode_32k")
+    tok_spec = Reg.input_specs(cfg, "decode_32k")["tokens"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    # the teacher-forced reference runs past the decoded positions to a
+    # multiple of the chunked attention's 512 (causal: later tokens leave
+    # earlier logits alone)
+    ref_len = -(-(P + n) // 512) * 512
+    tokens = torch.randint(0, cfg.vocab_size, (B, ref_len), generator=g,
+                           device="cuda", dtype=tok_spec.dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = {k: torch.zeros((s.shape[0], B, cap, *s.shape[3:]),
+                            dtype=s.dtype, device="cuda")
+             for k, s in specs.items()}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = steps.make_prefill_step(cfg)(params, {"tokens": tokens[:, :P]})
+    M.write_contiguous_kv(cfg, cache, pre["kvs"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = pre["next_logits"]
+    del pre
+    decode = steps.make_decode_step(cfg)
+    logits, step_s = [], []
+    for i in range(n):
+        batch = {"tokens": tokens[:, P + i:P + i + 1],
+                 "positions": torch.full((B,), P + i, dtype=torch.int32,
+                                         device="cuda")}
+        t0 = time.perf_counter()
+        out = decode(params, batch, cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(out["next_token"].dtype == torch.int32
+              and out["hidden"].shape == (B, cfg.d_model),
+              "launch_steps: decode outputs")
+        logits.append(out["logits"])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    del cache
+    with torch.no_grad():
+        ref = M.forward_full(params, cfg, tokens)["logits"]
+    V = cfg.vocab_size
+    errs, within, agree, near_ties = [], 0, 0, 0
+    for i, got in enumerate([first] + logits):
+        got = got[:, :V].float()
+        want = ref[:, P - 1 + i, :V].float()
+        check(bool(torch.isfinite(got).all()), f"launch_steps step {i}: "
+              "non-finite logits")
+        err = (got - want).abs().max().item()
+        amax = want.abs().max().item()
+        check(err <= PATHS_LOGIT_TOL * amax,
+              f"launch_steps step {i}: logits err {err} vs max {amax}")
+        errs.append(err)
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        same = got.argmax(-1) == want.argmax(-1)
+        check(bool(same[clear].all()),
+              f"launch_steps step {i}: greedy token differs off a near tie")
+        agree += int(same.sum())
+        near_ties += int((~clear).sum())
+        within += int(torch.isclose(got, want, **BF16_TOL).sum())
+    del ref
+    weight_bytes = 2 * rt["init"].count_params(params)
+    # each step reads the weights once and each lane's live K/V slots,
+    # and writes one slot per layer and lane
+    kv_slot = 2 * cfg.num_kv_heads * cfg.head_dim * 2 * cfg.num_layers
+    live = [B * (P + i + 1) * kv_slot for i in range(n)]
+    bound = [(weight_bytes + b) / HBM_BYTES_PER_S * 1e3 for b in live]
+    ms = [s * 1e3 for s in step_s]
+    out = {"shape": f"B={B} capacity={cap} (decode_32k cut from "
+                    f"B={specs['k_cache'].shape[1]} x "
+                    f"{specs['k_cache'].shape[2]}), prompt {P}, {n} steps, "
+                    f"bf16",
+           "cache_bytes": cache_bytes, "prefill_s": prefill_s,
+           "decode_ms_per_step": sum(ms[1:]) / (n - 1),
+           "decode_ms_first": ms[0], "bound_ms_per_step": sum(bound) / n,
+           "bound_share": sum(bound[1:]) / sum(ms[1:]),
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_memory_allocated": peak,
+           "logits_max_abs_err": max(errs),
+           "logits_max_abs_err_by_step": errs[::8],
+           "share_within_bf16_tolerance": within / (B * (n + 1) * V),
+           "argmax_agreement": agree / (B * (n + 1)),
+           "near_ties": near_ties}
+    emit("launch_steps", **out)
+    return out
+
+
+def phase_launch_train(rt):
+    """``launch.train.main`` at full width (qwen3-4b-thinking, 36 layers),
+    B 8 of 128 tokens in 4 microbatches of 2, every layer checkpointed:
+    its own bf16 params, f32 moments and f32 gradient accumulator (64 GB
+    before activations), with no other model resident. The losses are
+    finite and the params are left without ``requires_grad``."""
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    hist = train.main(["--arch", "qwen3-4b-thinking", "--steps", "3",
+                       "--batch", "8", "--seq", "128", "--microbatches",
+                       "4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"launch_train losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"shape": "B=8 seq=128 in 4 microbatches, remat, AdamW lr 1e-3, "
+                    "f32 moments and accumulator",
+           "losses": losses, "step_s": [h["step_s"] for h in hist],
+           "wall_s": wall, "max_memory_allocated": peak,
+           "memory_allocated_at_start": at_start,
+           "memory_allocated_after": torch.cuda.memory_allocated()}
+    emit("launch_train", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2732,11 +3025,16 @@ def main() -> int:
     phase_train(rt, ops, cfg, params)
     times = phase_times(pa, ss, fa, sd, kvq, smd)
     phase_step(rt, cfg, params)
+    phase_launch_steps(rt, ops, cfg, params)
 
-    # mamba2 at full width, after qwen3's params are freed (the train phase
-    # peaks at 74 GB of the 80)
+    # the training launcher at full width once qwen3's params are freed
+    # (its own params, moments and accumulator take 64 GB), then the
+    # serving launcher; then mamba2 (the train phase peaks at 74 GB of the
+    # 80)
     del params, scorer
     torch.cuda.empty_cache()
+    phase_launch_train(rt)
+    launch = phase_launch_serve(rt, ops)
     recurrent = {}
     for arch, tag in (("mamba2-2.7b", "mamba2"), ("zamba2-2.7b", "zamba2")):
         mcfg, mparams, mscorer, n_params, init_s = full_model(rt, arch)
@@ -2884,6 +3182,18 @@ def main() -> int:
             "none (XLA fusion of src/repro/models/layers.py:1120)",
             "ssm_decode_zamba2_bfloat16", serve_hyb["launches"]["ssm_decode"]),
     }
+    # the serving launcher's model (H 4, KVH 2, hd 64, D 256) on
+    # launch_serve's runs
+    lt = launch["launches"]
+    for face, count in (("decode", "paged_attention_decode"),
+                        ("prefill", "paged_attention_prefill"),
+                        ("decode_int8", "paged_attention_decode_quant"),
+                        ("prefill_int8", "paged_attention_prefill_quant")):
+        meta[f"paged_attention_{face}_launch"] = (
+            *paged, f"{face}_launch_bfloat16", lt[count])
+    meta["step_score_d256"] = (src + "step_score.cu",
+                               "src/repro/kernels/step_score.py:30",
+                               "score_d256_bfloat16", lt["step_score"])
     for kv_dtype, run in quant.items():
         for face in ("decode", "prefill"):
             meta[f"paged_attention_{face}_{kv_dtype}"] = (

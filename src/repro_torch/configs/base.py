@@ -5,14 +5,16 @@ Every assigned architecture is described by a single frozen `ModelConfig`.
 configuration; ``smoke_config()`` returns a reduced same-family variant
 (<=2 layers, d_model<=512, <=4 experts) used by CPU smoke tests.
 
-Input shapes are global. The shape stand-ins of the JAX package
-(``input_specs`` / ``kv_cache_specs``) wait for the port's launchers
-(ROADMAP A11).
+Input shapes are global; ``input_specs`` and ``kv_cache_specs`` build
+stand-ins on the ``meta`` device (shapes and dtypes, no storage), so a
+launcher can size its inputs and caches without allocating anything.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Input shapes (assigned)
@@ -167,3 +169,94 @@ class ModelConfig:
             return (self.sliding_window is not None
                     or self.long_context_window is not None)
         return True
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins, no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                       device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Meta-tensor stand-ins for every model input of the step fn.
+
+    train  -> {tokens, labels[, encoder_embeds / modality_embeds]}
+    prefill-> {tokens[, ...frontend embeds]}
+    decode -> {tokens (1 new), positions}
+    """
+    shape = SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = _meta((b, s), torch.int32)
+        specs["labels"] = _meta((b, s), torch.int32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = _meta((b, s), torch.int32)
+    else:  # decode
+        specs["tokens"] = _meta((b, 1), torch.int32)
+        specs["positions"] = _meta((b,), torch.int32)
+    if cfg.modality == "vision" and shape.kind in ("train", "prefill"):
+        # precomputed ViT/projector patch embeddings (stub frontend)
+        n = cfg.num_modality_tokens or 256
+        specs["modality_embeds"] = _meta((b, n, cfg.d_model), torch.bfloat16)
+    if cfg.is_encoder_decoder and shape.kind in ("train", "prefill"):
+        # precomputed frame embeddings for the encoder (stub); at decode
+        # time the encoder output lives in the cross-attention cache
+        enc_len = cfg.encoder_seq_len or 1024
+        specs["encoder_embeds"] = _meta((b, enc_len, cfg.d_model),
+                                        torch.bfloat16)
+    return specs
+
+
+def kv_cache_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Meta-tensor stand-ins of the contiguous decode cache that
+    ``models.model.serve_decode_step`` consumes, for a decode shape.
+
+    Each sequence owns a dense ring buffer (capacity: the effective cache
+    length rounded up to whole KV blocks):
+      k/v_cache:  [num_layers_attn, batch, capacity, KVH, head_dim]
+      kv_cache:   [num_layers_attn, batch, capacity, kv_lora+rope]  (MLA)
+      ssm_state:  [num_ssm_layers, batch, heads, head_dim, state] f32
+      conv_state: [num_ssm_layers, batch, conv_width-1, d_conv_channels]
+      cross_k/v:  [num_layers_attn, batch, encoder_len, KVH, head_dim]
+    """
+    shape = SHAPES[shape_name]
+    if shape.kind != "decode":
+        raise ValueError(f"kv_cache_specs takes a decode shape, not "
+                         f"{shape_name!r} ({shape.kind})")
+    b = shape.global_batch
+    bs = cfg.kv_block_size
+    capacity = -(-cfg.effective_cache_len(shape) // bs) * bs
+    specs: dict = {}
+    attn_layers = cfg.attention_layer_ids()
+    dt = torch.bfloat16
+    la = len(attn_layers)
+    if la:
+        if cfg.use_mla:
+            kv_dims = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            specs["kv_cache"] = _meta((la, b, capacity, kv_dims), dt)
+        else:
+            for key in ("k_cache", "v_cache"):
+                specs[key] = _meta(
+                    (la, b, capacity, cfg.num_kv_heads, cfg.head_dim), dt)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        # hybrid: ALL num_layers are mamba; the shared attention blocks
+        # between groups are counted by attention_layer_ids()
+        n_ssm = cfg.num_layers
+        specs["ssm_state"] = _meta(
+            (n_ssm, b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state_size),
+            torch.float32)
+        specs["conv_state"] = _meta(
+            (n_ssm, b, cfg.ssm_conv_width - 1,
+             cfg.d_inner + 2 * cfg.ssm_state_size), dt)
+    if cfg.is_encoder_decoder:
+        # cross-attention K/V computed once at prefill from the encoder
+        enc_len = cfg.encoder_seq_len or 1024
+        for key in ("cross_k", "cross_v"):
+            specs[key] = _meta(
+                (la, b, enc_len, cfg.num_kv_heads, cfg.head_dim), dt)
+    return specs

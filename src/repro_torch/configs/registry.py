@@ -7,7 +7,8 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
+                                      input_specs, kv_cache_specs)
 from repro_torch.data.tokenizer import get_tokenizer
 
 _ARCH_MODULES: Dict[str, str] = {
@@ -53,3 +54,17 @@ def serving_config(arch: str = "qwen3-4b-thinking") -> ModelConfig:
     cfg = get_config(arch, smoke=True)
     return dataclasses.replace(cfg, vocab_size=get_tokenizer().vocab_size)
 
+
+def get_shape(name: str) -> ShapeSpec:
+    return SHAPES[name]
+
+
+__all__ = [
+    "ALL_ARCHS",
+    "get_config",
+    "serving_config",
+    "get_shape",
+    "input_specs",
+    "kv_cache_specs",
+    "SHAPES",
+]

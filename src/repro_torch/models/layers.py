@@ -530,6 +530,95 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# contiguous-cache decode attention (the launcher's decode step)
+# ---------------------------------------------------------------------------
+# Each sequence owns a dense ring buffer [B, cap, ...] (configs.base's
+# kv_cache_specs): slot = position % cap, and the visible length is
+# min(position + 1, cap). Dense, as in the JAX package: no kernel reads a
+# contiguous cache.
+
+def contiguous_kv_update(cache: torch.Tensor, slot: torch.Tensor,
+                         new: torch.Tensor) -> torch.Tensor:
+    """cache [B, cap, ...]; slot [B]; new [B, ...]: row b's slot takes
+    new[b], in place (cast to the cache's dtype). Returns the cache."""
+    if cache.device.type == "cpu":
+        check_index(slot, cache.shape[1], "contiguous cache slot")
+    cache[torch.arange(cache.shape[0], device=cache.device),
+          slot.long()] = new.to(cache.dtype)
+    return cache
+
+
+def _ring(positions: torch.Tensor, cap: int):
+    """(write slot, visible slots mask [B, cap]) of a ring buffer."""
+    lens = torch.clamp(positions + 1, max=cap)
+    valid = (torch.arange(cap, device=positions.device)[None, :]
+             < lens[:, None])
+    return positions % cap, valid
+
+
+def gqa_attention_decode_contiguous(p: dict, cfg: ModelConfig,
+                                    x: torch.Tensor, positions: torch.Tensor,
+                                    k_cache: torch.Tensor,
+                                    v_cache: torch.Tensor) -> torch.Tensor:
+    """One-token GQA decode over contiguous caches k/v_cache
+    [B, cap, KVH, hd] (written in place). x [B, 1, D]; positions [B].
+    f32 scores and softmax; returns out [B, 1, D]."""
+    B = x.shape[0]
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, H, hd)
+    k = (x @ p["wk"]).reshape(B, KVH, hd)
+    v = (x @ p["wv"]).reshape(B, KVH, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    slot, valid = _ring(positions, k_cache.shape[1])
+    contiguous_kv_update(k_cache, slot, k)
+    contiguous_kv_update(v_cache, slot, v)
+    qg = q.reshape(B, KVH, H // KVH, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
+    scores = scores * (1.0 / math.sqrt(hd))
+    out = masked_softmax_pv(scores, valid[:, None, None, :], v_cache,
+                            "bkgs,bskh->bkgh")
+    return out.to(x.dtype).reshape(B, 1, H * hd) @ p["wo"]
+
+
+def mla_attention_decode_contiguous(p: dict, cfg: ModelConfig,
+                                    x: torch.Tensor, positions: torch.Tensor,
+                                    kv_cache: torch.Tensor) -> torch.Tensor:
+    """Absorbed MLA decode over a contiguous latent cache
+    [B, cap, kv_lora + rope] (written in place), in the rounding order of
+    :func:`mla_attention_decode`: ``q_abs`` in x's dtype, f32 scores,
+    probabilities cast to x's dtype before the latent P.V, a cache of
+    another dtype read in their promotion. Returns out [B, 1, D]."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    Lk = cfg.kv_lora_rank
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x[:, 0], positions)
+    slot, valid = _ring(positions, kv_cache.shape[1])
+    contiguous_kv_update(kv_cache, slot, torch.cat([c_kv, k_rope], dim=-1))
+
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope,
+                         p["wk_b"].reshape(Lk, H, nd))
+    c_seq, kr_seq = kv_cache[..., :Lk], kv_cache[..., Lk:]
+    scores = (torch.einsum("bhl,bsl->bhs", q_abs.float(), c_seq.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_seq.float()))
+    scores = scores * (1.0 / math.sqrt(nd + rd))
+    probs = torch.softmax(torch.where(valid[:, None, :], scores, -1e30),
+                          dim=-1).to(x.dtype)
+    dt = torch.promote_types(x.dtype, kv_cache.dtype)
+    o_lat = torch.einsum("bhs,bsl->bhl", probs.to(dt), c_seq.to(dt))
+    out = torch.einsum("bhl,lhd->bhd", o_lat,
+                       p["wv_b"].reshape(Lk, H, vd).to(dt))
+    return (out.reshape(B, 1, H * vd) @ p["wo"].to(dt)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # cross attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 

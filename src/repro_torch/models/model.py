@@ -14,7 +14,10 @@ of Mamba2 layers, each followed by one shared attention block).
                             also returning the last hidden state so the
                             STEP scorer can run fused with generation;
   multi_decode_step(...)  — the fused K-token decode horizon;
-  prefill_chunk_step(...) — one prompt chunk against the paged cache.
+  prefill_chunk_step(...) — one prompt chunk against the paged cache;
+  serve_decode_step(...)  — one-token decode against the contiguous
+                            per-sequence caches of ``kv_cache_specs``
+                            (the launchers' decode step; dense).
 
 ``lax.scan`` over layers and over the decode horizon becomes a Python
 loop. The paged pools (``[L, NB, bs, KVH, hd]``; MLA's latent pool
@@ -112,6 +115,15 @@ def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     return L.swiglu(lp["mlp"], x), None
 
 
+def _body(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` through a non-reentrant checkpoint,
+    which keeps only the body's inputs and recomputes its intermediates in
+    the backward pass."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (one-shot prefill)
 # ---------------------------------------------------------------------------
@@ -119,7 +131,8 @@ def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor):
 def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     return_kv: bool, use_kernel: bool,
                     modality_embeds: Optional[torch.Tensor] = None,
-                    encoder_embeds: Optional[torch.Tensor] = None):
+                    encoder_embeds: Optional[torch.Tensor] = None,
+                    remat: bool = False):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
     kvs or None, the summed aux loss of the MoE layers: f32, 0 without
     them)."""
@@ -129,7 +142,7 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if encoder_embeds is None:
             raise ValueError("an encoder-decoder's forward needs "
                              "encoder_embeds [B, T, D]")
-        enc_out = encode(params, cfg, encoder_embeds)
+        enc_out = encode(params, cfg, encoder_embeds, remat=remat)
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -139,18 +152,17 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = torch.cat([modality_embeds.to(h.dtype), h[:, n:]], dim=1)
     if cfg.arch_type == "ssm":
         h, kvs = _ssm_stack_full(params["layers"], cfg.num_layers, cfg, h,
-                                 return_kv, use_kernel)
+                                 return_kv, use_kernel, remat)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if cfg.arch_type == "hybrid":
         h, kvs = _hybrid_stack_full(params, cfg, h, positions, return_kv,
-                                    use_kernel)
+                                    use_kernel, remat)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     kvs = []
     for l in range(cfg.num_layers):
-        h, kv, aux_l = _attn_block_full(_layer(params, l), cfg, h,
-                                        positions, return_kv, use_kernel,
-                                        enc_out)
+        h, kv, aux_l = _body(remat, _attn_block_full, _layer(params, l), cfg,
+                             h, positions, return_kv, use_kernel, enc_out)
         if aux_l is not None:
             aux = aux + aux_l
         kvs.append(kv)
@@ -192,44 +204,61 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
     return h + m, kv, aux
 
 
-def encode(params: dict, cfg: ModelConfig,
-           encoder_embeds: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, encoder_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """The encoder of an encoder-decoder over the stub frontend's
     embeddings [B, T, D]: ``num_encoder_layers`` blocks of GQA attention
     and SwiGLU, then ``encoder_norm``. Its attention is CAUSAL (rope at
     positions 0..T-1), because the JAX package's encoder calls
     ``gqa_attention_full(window=None)``, whose mask is causal (ROADMAP
-    C); it stays dense under ``use_kernel``, as there. Returns
-    [B, T, D]."""
+    C); it stays dense under ``use_kernel``, as there. ``remat``
+    checkpoints each block. Returns [B, T, D]."""
     check_ported(cfg)
     h = encoder_embeds
     B, T, _ = h.shape
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
     enc = params["encoder"]
     for l in range(cfg.num_encoder_layers):
-        lp = _index(enc, l)
-        h = h + L.gqa_attention_full(
-            lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-            positions, window=None)
-        h = h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = _body(remat, _encoder_block, _index(enc, l), cfg, h, positions)
     return L.rms_norm(h, params["encoder_norm"], cfg.norm_eps)
+
+
+def _encoder_block(lp: dict, cfg: ModelConfig, h: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = h + L.gqa_attention_full(
+        lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
+        window=None)
+    return h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+
+def _hybrid_group_full(gp: dict, sa: dict, cfg: ModelConfig,
+                       h: torch.Tensor, positions: torch.Tensor,
+                       return_kv: bool, use_kernel: bool):
+    """One hybrid group: its ``per`` Mamba2 layers, then the shared
+    attention block: (h, the group's end state or None, (k, v) or
+    None)."""
+    h, st = _ssm_stack_full(gp, cfg.hybrid_attn_every, cfg, h, return_kv,
+                            use_kernel)
+    h, kv, _ = _attn_block_full(sa, cfg, h, positions, return_kv,
+                                use_kernel)
+    return h, st, kv
 
 
 def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
                        positions: torch.Tensor, return_kv: bool,
-                       use_kernel: bool):
+                       use_kernel: bool, remat: bool = False):
     """The hybrid's G groups over a full sequence, each ``per`` Mamba2
-    layers and then the shared attention block: (h, ((ssm_state
-    [G, per, B, H, P, N], conv_state [G, per, B, W-1, di+2N]), (k, v)
-    each [G, B, S, KVH, hd])) or (h, None)."""
-    G, per = _groups(cfg)
+    layers and then the shared attention block (``remat`` checkpoints
+    each group): (h, ((ssm_state [G, per, B, H, P, N], conv_state
+    [G, per, B, W-1, di+2N]), (k, v) each [G, B, S, KVH, hd])) or
+    (h, None)."""
+    G, _ = _groups(cfg)
     sa = params["shared_attn"]
     states, ks, vs = [], [], []
     for g in range(G):
-        h, st = _ssm_stack_full(_index(params["layers"], g), per, cfg, h,
-                                return_kv, use_kernel)
-        h, kv, _ = _attn_block_full(sa, cfg, h, positions, return_kv,
-                                    use_kernel)
+        h, st, kv = _body(remat, _hybrid_group_full,
+                          _index(params["layers"], g), sa, cfg, h, positions,
+                          return_kv, use_kernel)
         if return_kv:
             states.append(st)
             ks.append(kv[0])
@@ -241,32 +270,41 @@ def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
                (torch.stack(ks), torch.stack(vs)))
 
 
-def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
+def _ssm_layer_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                     return_kv: bool, use_kernel: bool):
+    """One Mamba2 layer over a full sequence: (h, (ssm_state, conv_state)
+    or None)."""
+    x_in = L.rms_norm(h, lp["norm"], cfg.norm_eps)
+    if return_kv:
+        out, s_l, c_l = L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
+                                            use_kernel=use_kernel,
+                                            return_state=True)
+        return h + out, (s_l, c_l)
+    return h + L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
+                                   use_kernel=use_kernel), None
+
+
+def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
+                    return_kv: bool, use_kernel: bool, remat: bool = False):
     """``n`` Mamba2 layers (``layers``: {norm, mixer} stacked over them)
-    over a full sequence: (h, (ssm_state [n, B, H, P, N] f32, conv_state
-    [n, B, W-1, di+2N]) or None)."""
-    ss, cs = [], []
+    over a full sequence, ``remat`` checkpointing each: (h, (ssm_state
+    [n, B, H, P, N] f32, conv_state [n, B, W-1, di+2N]) or None)."""
+    states = []
     for l in range(n):
-        lp = _index(layers, l)
-        x_in = L.rms_norm(h, lp["norm"], cfg.norm_eps)
-        if return_kv:
-            out, s_l, c_l = L.mamba2_mixer_full(
-                lp["mixer"], cfg, x_in, use_kernel=use_kernel,
-                return_state=True)
-            ss.append(s_l)
-            cs.append(c_l)
-        else:
-            out = L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
-                                      use_kernel=use_kernel)
-        h = h + out
-    return h, ((torch.stack(ss), torch.stack(cs)) if return_kv else None)
+        h, st = _body(remat, _ssm_layer_full, _index(layers, l), cfg, h,
+                      return_kv, use_kernel)
+        states.append(st)
+    if not return_kv:
+        return h, None
+    return h, (torch.stack([s for s, _ in states]),
+               torch.stack([c for _, c in states]))
 
 
 def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  return_kv: bool = False, use_kernel: bool = False,
                  modality_embeds: Optional[torch.Tensor] = None,
-                 encoder_embeds: Optional[torch.Tensor] = None) -> dict:
+                 encoder_embeds: Optional[torch.Tensor] = None,
+                 remat: bool = False) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
     stack, MLA's latent entries [L, B, S, kv_lora + rope], (ssm_state
@@ -281,10 +319,13 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     embeddings; an encoder-decoder needs ``encoder_embeds`` [B, T, D],
     whose :func:`encode` output every decoder layer's cross-attention
     reads. ``aux_loss`` is the sum of the MoE layers' load-balancing
-    losses (f32 0 without MoE)."""
+    losses (f32 0 without MoE). ``remat`` checkpoints each layer (each
+    group of the hybrid, each encoder block): the backward pass recomputes
+    a layer's intermediates from its input instead of keeping them, as
+    the JAX package's ``jax.checkpoint`` does."""
     hidden, kvs, aux = _forward_hidden(params, cfg, tokens, return_kv,
                                        use_kernel, modality_embeds,
-                                       encoder_embeds)
+                                       encoder_embeds, remat)
     out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
            "aux_loss": aux}
     if return_kv:
@@ -492,6 +533,94 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the launchers' decode step: contiguous per-sequence caches
+# ---------------------------------------------------------------------------
+
+def serve_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      positions: torch.Tensor, cache: dict) -> dict:
+    """tokens [B, 1]; positions [B]; cache as ``configs.base``'s
+    ``kv_cache_specs`` lays it out: ring buffers ``k_cache``/``v_cache``
+    [La, B, cap, KVH, hd] (MLA: ``kv_cache`` [La, B, cap, kv_lora +
+    rope]), an ssm or hybrid stack's ``ssm_state`` [L, B, H, P, N] and
+    ``conv_state`` [L, B, W-1, di+2N], an encoder-decoder's ``cross_k`` /
+    ``cross_v`` [La, B, T, KVH, hd]. Every entry is written in place (the
+    hybrid's state through its [G, per, ...] view, its caches one per
+    group); the cross caches are only read. Dense throughout, as in the
+    JAX package. Returns {logits [B, Vp], hidden [B, D], cache}."""
+    check_ported(cfg)
+    h = _embed(params, cfg, tokens)  # [B, 1, D]
+    if cfg.arch_type == "ssm":
+        for l in range(cfg.num_layers):
+            h = _mamba_decode(_layer(params, l), cfg, h, cache, l, False)
+    elif cfg.arch_type == "hybrid":
+        G, per = _groups(cfg)
+        for g in range(G):
+            gp = _index(params["layers"], g)
+            for i in range(per):
+                h = _mamba_decode(_index(gp, i), cfg, h, cache, g * per + i,
+                                  False)
+            h = _attn_decode_contiguous(params["shared_attn"], cfg, h,
+                                        positions, cache, g)
+    else:
+        for l in range(cfg.num_layers):
+            h = _attn_decode_contiguous(_layer(params, l), cfg, h, positions,
+                                        cache, l)
+    hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
+    return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
+            "cache": dict(cache)}
+
+
+def _attn_decode_contiguous(lp: dict, cfg: ModelConfig, h: torch.Tensor,
+                            positions: torch.Tensor, cache: dict,
+                            idx: int) -> torch.Tensor:
+    """One decoder layer's decode against entry ``idx`` of the contiguous
+    caches (and, for an encoder-decoder, of the cross caches)."""
+    a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        a = L.mla_attention_decode_contiguous(lp["attn"], cfg, a_in,
+                                              positions,
+                                              cache["kv_cache"][idx])
+    else:
+        a = L.gqa_attention_decode_contiguous(lp["attn"], cfg, a_in,
+                                              positions,
+                                              cache["k_cache"][idx],
+                                              cache["v_cache"][idx])
+    h = h + a
+    if cfg.is_encoder_decoder:
+        h = h + L.cross_attention(
+            lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+            cache["cross_k"][idx], cache["cross_v"][idx])
+    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
+
+
+def write_contiguous_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
+    """Seed a contiguous decode cache (:func:`serve_decode_step`'s) in
+    place from a prefill's ``kvs`` (``forward_full(return_kv=True)``):
+    each sequence's K/V (MLA: latent entries) at slot = position, for a
+    prompt no longer than the capacity; an ssm stack's end state, or the
+    hybrid's ([G, per, ...] state, K/V per group), replaces the cache's
+    state. The cross caches of an encoder-decoder are the caller's
+    (:func:`build_cross_cache`)."""
+    if cfg.arch_type == "ssm":
+        kvs = (kvs, None)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        (ss, cs), kvs = kvs
+        cache["ssm_state"].copy_(ss.reshape(cache["ssm_state"].shape))
+        cache["conv_state"].copy_(cs.reshape(cache["conv_state"].shape))
+        if kvs is None:
+            return cache
+    pairs = ((("kv_cache", kvs),) if cfg.use_mla
+             else (("k_cache", kvs[0]), ("v_cache", kvs[1])))
+    for key, vals in pairs:
+        S, cap = vals.shape[2], cache[key].shape[2]
+        if S > cap:
+            raise ValueError(f"a {S}-token prefill does not fit a "
+                             f"{cap}-slot cache")
+        cache[key][:, :, :S] = vals
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # cache construction / prefill population (serving engine path)
 # ---------------------------------------------------------------------------
 
@@ -670,13 +799,15 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, aux_weight: float = 0.01,
             use_kernel: bool = False,
             modality_embeds: Optional[torch.Tensor] = None,
-            encoder_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            encoder_embeds: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
     """Mean next-token NLL over the labels inside [0, vocab_size) (the
     others are masked), plus ``aux_weight`` times the MoE layers' summed
     load-balancing loss (0 without MoE). tokens/labels [B, S]; an
-    encoder-decoder's decoder reads ``encoder_embeds`` [B, T, D]."""
+    encoder-decoder's decoder reads ``encoder_embeds`` [B, T, D].
+    ``remat``: see :func:`forward_full`."""
     hidden, _, aux = _forward_hidden(params, cfg, tokens, False, use_kernel,
-                                     modality_embeds, encoder_embeds)
+                                     modality_embeds, encoder_embeds, remat)
     valid = (labels >= 0) & (labels < cfg.vocab_size)
     n = valid.sum().clamp(min=1)
     if tokens.shape[1] > CHUNKED_CE_THRESHOLD:

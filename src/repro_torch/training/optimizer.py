@@ -2,10 +2,12 @@
 
 The JAX optimizer returns new param and moment trees; at full width the
 f32 moments alone take 32 GB, so the port updates each parameter and its
-moments IN PLACE, one tensor at a time (the temporaries of one tensor are
-the only extra memory). The arithmetic is the JAX package's, in the same
-order: f32 math, moments stored in ``moment_dtype``, global-norm gradient
-clipping, bias corrections and the schedule in f32.
+moments IN PLACE, one block of at most ``BLOCK_ELEMENTS`` at a time
+(leading rows of a larger tensor): the f32 temporaries of one block are
+the only extra memory (a whole stacked MLP weight of qwen3-4b would need
+about 20 GB of them). The arithmetic is the JAX package's, elementwise and
+in the same order: f32 math, moments stored in ``moment_dtype``,
+global-norm gradient clipping, bias corrections and the schedule in f32.
 """
 from __future__ import annotations
 
@@ -17,6 +19,20 @@ import numpy as np
 import torch
 
 from repro_torch.training import tree as T
+
+
+# elements per in-place update block (2 GB of f32 temporaries at most)
+BLOCK_ELEMENTS = 2 ** 26
+
+
+def _blocks(*tensors):
+    """Matching blocks of same-shaped tensors: each whole, or split into
+    runs of leading rows of at most ``BLOCK_ELEMENTS`` elements (views)."""
+    t = tensors[0]
+    if t.numel() <= BLOCK_ELEMENTS:
+        return [tensors]
+    rows = max(1, BLOCK_ELEMENTS // (t.numel() // t.shape[0]))
+    return zip(*(x.split(rows) for x in tensors))
 
 
 class AdamState(NamedTuple):
@@ -63,17 +79,19 @@ class AdamW:
         # bias corrections in f32, as the JAX package computes them
         b1c = float(np.float32(1) - np.float32(self.b1) ** np.float32(step))
         b2c = float(np.float32(1) - np.float32(self.b2) ** np.float32(step))
-        for p, g, m, v in zip(T.leaves(params), gs, T.leaves(state.mu),
-                              T.leaves(state.nu)):
-            g = g.float() if scale is None else g.float() * scale
-            m_new = self.b1 * m.float() + (1 - self.b1) * g
-            v_new = self.b2 * v.float() + (1 - self.b2) * g.square()
-            m.copy_(m_new)
-            v.copy_(v_new)
-            u = (m.float() / b1c) / (torch.sqrt(v.float() / b2c) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * u)
+        for leaf in zip(T.leaves(params), gs, T.leaves(state.mu),
+                        T.leaves(state.nu)):
+            for p, g, m, v in _blocks(*leaf):
+                g = g.float() if scale is None else g.float() * scale
+                m_new = self.b1 * m.float() + (1 - self.b1) * g
+                v_new = self.b2 * v.float() + (1 - self.b2) * g.square()
+                m.copy_(m_new)
+                v.copy_(v_new)
+                u = (m.float() / b1c) / (torch.sqrt(v.float() / b2c)
+                                         + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p.float()
+                p.copy_(p.float() - lr * u)
         return params, AdamState(step=step, mu=state.mu, nu=state.nu)
 
 

@@ -42,6 +42,7 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models.init import init_params  # noqa: E402
 from repro_torch.serving import engine as te  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
+from repro_torch.training import tree as T  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1173,3 +1174,55 @@ def test_seamless_kernel_paths_match_dense_on_card(gen):
             cfg.num_layers
         torch.testing.assert_close(logits[True], logits[False],
                                    **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b-thinking", "zamba2-2.7b",
+                                  "deepseek-v2-236b"])
+def test_serve_decode_step_on_card_matches_cpu(gen, arch):
+    """The launchers' contiguous-cache decode (``serve_decode_step``,
+    dense) on the card against the same calls on the CPU, at a smoke
+    config in f32: a 12-token prefill seeds each side's caches
+    (``write_contiguous_kv``), then 6 decode steps past the 16-slot
+    ring's wrap; logits and hidden at 1e-4, greedy tokens equal."""
+    from repro_torch.launch import steps
+    cfg = serving_config(arch)
+    params = {"cuda": _f32(init_params(cfg, gen))}
+    params["cpu"] = T.map_tree(lambda x: x.cpu(), params["cuda"])
+    B, S, cap = 2, 12, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 6), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    caches, decode = {}, steps.make_decode_step(cfg)
+    for dev in ("cuda", "cpu"):
+        pre = steps.make_prefill_step(cfg)(params[dev],
+                                           {"tokens": tokens[:, :S].to(dev)})
+        la = len(cfg.attention_layer_ids())
+        c = {}
+        if cfg.use_mla:
+            c["kv_cache"] = torch.zeros(
+                la, B, cap, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                device=dev)
+        else:
+            for key in ("k_cache", "v_cache"):
+                c[key] = torch.zeros(la, B, cap, cfg.num_kv_heads,
+                                     cfg.head_dim, device=dev)
+        if cfg.arch_type == "hybrid":
+            c["ssm_state"] = torch.zeros(
+                cfg.num_layers, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state_size, device=dev)
+            c["conv_state"] = torch.zeros(
+                cfg.num_layers, B, cfg.ssm_conv_width - 1,
+                cfg.d_inner + 2 * cfg.ssm_state_size, device=dev)
+        caches[dev] = tm.write_contiguous_kv(cfg, c, pre["kvs"])
+    for i in range(6):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            batch = {"tokens": tokens[:, S + i:S + i + 1].to(dev),
+                     "positions": torch.full((B,), S + i, dtype=torch.int32,
+                                             device=dev)}
+            out[dev] = decode(params[dev], batch, caches[dev])
+        for key in ("logits", "hidden"):
+            torch.testing.assert_close(out["cuda"][key].cpu(),
+                                       out["cpu"][key],
+                                       **TOL[torch.float32])
+        assert torch.equal(out["cuda"]["next_token"].cpu(),
+                           out["cpu"]["next_token"])

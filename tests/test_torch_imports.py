@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` imports
-jax or the JAX package ``repro`` (not even its jax-free modules)."""
+jax, the JAX package ``repro`` (not even its jax-free modules) or the
+JAX package's ``benchmarks``."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 pytest.importorskip("torch")
 
 PORT = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "benchmarks")
 
 
 def _modules():
@@ -43,7 +44,9 @@ def test_port_has_modules():
                  "models/kv_quant.py", "kernels/flash_attention.py",
                  "training/optimizer.py", "training/checkpoint.py",
                  "training/trainer.py", "data/dataset.py",
-                 "core/scorer.py", "core/pipeline.py"):
+                 "core/scorer.py", "core/pipeline.py",
+                 "launch/steps.py", "launch/train.py", "launch/serve.py",
+                 "launch/artifacts.py"):
         assert want in names
 
 
@@ -62,9 +65,10 @@ def test_checker_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom repro.models import init\n"
                    "from repro_torch.models import init as ok\n"
-                   "import repro\nfrom . import sibling\n")
+                   "import repro\nfrom . import sibling\n"
+                   "from benchmarks.common import load_artifacts\n")
     assert [n for _, n in _forbidden_imports(src)] == [
-        "jax.numpy", "repro.models", "repro"]
+        "jax.numpy", "repro.models", "repro", "benchmarks.common"]
 
 
 def test_importing_every_module_loads_no_jax():

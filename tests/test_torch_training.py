@@ -114,6 +114,37 @@ def test_adamw_matches_jax(moment_dtype, grad_clip):
     assert T.leaves(ts.mu)[0].dtype == getattr(torch, moment_dtype)
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_blocks_equal_whole_tensors(monkeypatch, moment_dtype):
+    """Tensors past ``BLOCK_ELEMENTS`` are updated in blocks of leading
+    rows: the same elementwise arithmetic, so the same bits as one
+    whole-tensor update (scalars and tensors under the limit stay
+    whole)."""
+    rs = np.random.RandomState(4)
+    shapes = {"w": (7, 5), "s": (3, 4, 2), "b": (9,), "c": ()}
+
+    def run(block):
+        monkeypatch.setattr(t_opt, "BLOCK_ELEMENTS", block)
+        tp = params_from_numpy({k: np.asarray(rs.randn(*v), np.float32)
+                                for k, v in shapes.items()}, device="cpu")
+        opt = t_opt.AdamW(learning_rate=1e-2, weight_decay=0.01,
+                          moment_dtype=moment_dtype)
+        state = opt.init(tp)
+        for _ in range(2):
+            grads = T.map_tree(lambda x: torch.from_numpy(
+                np.asarray(3 * rs.randn(*x.shape), np.float32)), tp)
+            tp, state = opt.update(grads, state, tp)
+        return T.leaves(tp) + T.leaves(state.mu) + T.leaves(state.nu)
+
+    seed = rs.get_state()
+    whole = run(2 ** 26)
+    rs.set_state(seed)
+    blocked = run(8)
+    assert len(list(t_opt._blocks(torch.zeros(7, 5)))) == 7
+    for a, b in zip(whole, blocked):
+        assert torch.equal(a, b)
+
+
 def test_cosine_schedule_matches_jax():
     jf, tf = j_opt.cosine_schedule(3e-3, 30, 300), \
         t_opt.cosine_schedule(3e-3, 30, 300)
