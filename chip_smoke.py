@@ -652,6 +652,11 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
                 [(16, 64, 16), (64, 200, 50)], [(16, 64, 16)], "_hd80")
     lens8 = [0] + [15 + (32 * i) // 6 for i in range(7)]
     check_paged(pa, kvq, g, errs, 8, 48, 1, 128, 32, lens8, [], [], "_g48")
+    # a rank of serve_mesh's (1, 2) mesh at full width: qwen3's 16 of 32
+    # query heads over 4 of its 8 kv heads, the serve's 16 lanes, chunks
+    # of 8
+    check_paged(pa, kvq, g, errs, 16, 16, 4, 128, 32, lens16,
+                [(8, 0, 8), (8, 8, 7)], [], "_mesh")
     # the other dense archs' head groups (hd 128) over the same 8 lanes:
     # qwen3-1.7b 16 over 8 (G = 2), phi4-mini 24 over 8 (G = 3, a partly
     # filled group of rows), starcoder2 24 over 2 (G = 12)
@@ -2299,6 +2304,12 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     lens8 = [15 + (32 * i) // 7 for i in range(8)]
     rows["paged_attention_decode_g48"] = time_decode(pa, kvq, g, 8, 48, 1,
                                                      128, 32, lens8)
+    # a rank of serve_mesh's (1, 2) mesh: 16 query heads over 4 kv heads,
+    # 16 lanes; the chunk of 8 over the prompt's first 8 tokens
+    rows["paged_attention_decode_mesh"] = time_decode(pa, kvq, g, B, 16, 4,
+                                                      128, 32, lens)
+    rows["paged_attention_prefill_mesh"] = time_prefill(
+        pa, kvq, g, 16, 4, 128, 32, C=8, prefix=8)
 
     # K3 at the kernels phase's shape: B = 1, H = 32, S = 2048, causal;
     # qwen3's hd 128 in bf16, zamba2's hd 80 in bf16 and f32
@@ -2978,11 +2989,30 @@ def phase_launch_train(rt):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+# ---------------------------------------------------------------------------
+# serve_mesh: the mesh engine, its ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# (backend, (data, model)): NCCL takes one rank per card, so two ranks on
+# the one card go over gloo (which carries CUDA tensors through the host)
+MESH_RUNS = (("nccl", (1, 1)), ("gloo", (1, 2)), ("gloo", (2, 1)))
+MESH_JOBS = {
+    # the smoke config in f32, EOS suppressed (the pool fills, STEP prunes)
+    "smoke": dict(traces=8, max_new=40, chunk=4, blocks=16, capacity=128,
+                  kv_dtype="f32"),
+    # qwen3 at full width in bf16
+    "full": dict(traces=16, max_new=64, chunk=8, blocks=80, capacity=512,
+                 kv_dtype="bf16"),
+}
+MESH_DEVICE = "cuda:0"
+# two ranks against one device: f32 step scores, and the first decode
+# iteration's bf16 logits relative to their largest magnitude
+MESH_SCORE_TOL = 1e-4
+MESH_LOGIT_TOL = PATHS_LOGIT_TOL
+
+
+def runtime() -> dict:
+    """The port's modules the phases drive, by short name."""
     import importlib
     names = {"registry": "configs.registry", "init": "models.init",
              "scorer": "core.scorer", "pruning": "core.pruning",
@@ -2992,9 +3022,234 @@ def main() -> int:
              "kv_quant": "models.kv_quant", "trainer": "training.trainer",
              "optimizer": "training.optimizer", "tree": "training.tree",
              "dataset": "data.dataset", "pipeline": "core.pipeline",
-             "layers": "models.layers", "ops": "kernels.ops"}
-    rt = {k: importlib.import_module(f"repro_torch.{v}")
-          for k, v in names.items()}
+             "layers": "models.layers", "ops": "kernels.ops",
+             "mesh": "launch.mesh"}
+    return {k: importlib.import_module(f"repro_torch.{v}")
+            for k, v in names.items()}
+
+
+def mesh_serve(rt, job: str, mesh=None) -> dict:
+    """One greedy STEP serve of ``job`` on the card through the kernels:
+    the single-device engine (``mesh`` None) or this rank's mesh engine.
+    Both run the eager horizon and the dense scorer (as a mesh engine
+    does), so the (1, 1) mesh can be held to the single engine bit for
+    bit. Records the first decode iteration's logits, the launches, the
+    wall per decode iteration and the peak memory."""
+    E, spec = rt["engine"], MESH_JOBS[job]
+    tok = rt["tokenizer"].get_tokenizer()
+    if job == "smoke":
+        cfg = rt["registry"].serving_config()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        params = no_eos(to_f32(rt["init"].init_params(cfg, g)), cfg,
+                        tok.eos_id)
+        scorer = rt["scorer"].init_scorer(g, cfg.d_model)
+        prompt = tok.encode("3+5-2=", add_bos=True)
+    else:
+        cfg, params, scorer, _, _ = full_model(rt)
+        problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
+        prompt = tok.encode(rt["arithmetic"].make_prompt(problem),
+                            add_bos=True)
+    B = spec["traces"]
+    ecfg = E.EngineConfig(max_batch=B, num_blocks=spec["blocks"],
+                          capacity=spec["capacity"],
+                          max_new_tokens=spec["max_new"],
+                          sampling=greedy(rt, spec["max_new"]),
+                          use_kernel=True, decode_horizon=4,
+                          prefill_chunk_size=spec["chunk"], faults=None,
+                          kv_dtype=spec["kv_dtype"])
+    engine = E.Engine(params, cfg, ecfg, rt["pruning"].make_policy("step"),
+                      scorer_params=scorer, mesh=mesh, device=MESH_DEVICE,
+                      _eager_decode=True)
+    engine.fused_scorer = False
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {"iterations": 0, "host": False}
+    sample, host = E.sample_logits, engine.sample_host
+
+    def recording(g, logits, **kw):   # each decode iteration samples once
+        if not seen["host"]:
+            seen["iterations"] += 1
+            seen.setdefault("logits", logits.float().cpu())
+        return sample(g, logits, **kw)
+
+    def host_sampling(logits, sp):    # a prefill's first tokens
+        seen["host"] = True
+        try:
+            return host(logits, sp)
+        finally:
+            seen["host"] = False
+
+    engine.sample_host = host_sampling
+
+    ops = rt["ops"]
+    E.sample_logits = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = engine.serve(prompt, B)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        E.sample_logits = sample
+    check_result(res, engine)
+    iters = max(seen["iterations"], 1)
+    return {"tokens": [t.output_tokens for t in res.traces],
+            "scores": [t.step_scores for t in res.traces],
+            "statuses": [str(t.status) for t in res.traces],
+            "num_pruned": res.num_pruned, "logits": seen["logits"],
+            "launches": launches, "use_kernel": engine.use_kernel,
+            "decode_iterations": iters, "wall_s": wall,
+            "wall_ms_per_iteration": wall / iters * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def mesh_rank(rank: int, world: int, backend: str, shape: tuple,
+              path: str) -> None:
+    """One rank of a ``shape`` mesh over ``backend`` (a file store in
+    ``path``): every job of ``MESH_JOBS``, written to ``rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank left waiting in a collective fails after 5 minutes, not never
+    dist.init_process_group(
+        backend, init_method=f"file://{path}/store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    try:
+        rt = runtime()
+        mesh = rt["mesh"].make_host_mesh(*shape)
+        out = {job: mesh_serve(rt, job, mesh) for job in MESH_JOBS}
+        torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def leading_agreement(a: list, b: list) -> int:
+    """How many leading tokens two traces share."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_serve_mesh(rt):
+    """The mesh engine on the card: a (1, 1) mesh over NCCL held to the
+    single-device engine bit for bit, then two ranks over gloo at (1, 2)
+    and (2, 1), both at the smoke config in f32 (tokens, statuses and
+    prunes identical, step scores within ``MESH_SCORE_TOL``) and at full
+    width in bf16 (the first decode iteration's logits within
+    ``MESH_LOGIT_TOL`` of their largest magnitude; token agreement
+    reported). Every rank must launch K1a, and K1b for the chunked
+    prefills, and capture no graph. The ranks share one card and gloo
+    stages through the host: the walls and peaks are no speed figures."""
+    import shutil
+    import torch.multiprocessing as mp
+    base = ROOT / "build" / "serve_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    single = {job: mesh_serve(rt, job) for job in MESH_JOBS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"single": {job: {k: r[k] for k in (
+        "decode_iterations", "wall_ms_per_iteration",
+        "max_memory_allocated", "num_pruned")}
+        for job, r in single.items()}, "meshes": {}}
+    decode_mesh = prefill_mesh = 0
+    for backend, shape in MESH_RUNS:
+        key = f"{shape[0]}x{shape[1]}"
+        world = shape[0] * shape[1]
+        path = base / key
+        path.mkdir(parents=True)
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(world, backend, shape, str(path)),
+                 nprocs=world, join=True)
+        entry = {"backend": backend, "spawn_s": time.perf_counter() - t0}
+        ranks = [torch.load(path / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        for job, spec in MESH_JOBS.items():
+            want = single[job]
+            live = torch.isfinite(want["logits"])   # the vocab, not its pad
+            amax = want["logits"][live].abs().max().item()
+            rows = []
+            for r, got in enumerate(r_[job] for r_ in ranks):
+                name = f"serve_mesh {key} {job} rank {r}"
+                lt = got["launches"]
+                check(got["use_kernel"], f"{name}: not on the kernel path")
+                check(lt["paged_attention_decode"] > 0,
+                      f"{name}: K1a never launched")
+                check(lt["paged_attention_prefill"] > 0,
+                      f"{name}: K1b never launched in the chunked prefill")
+                check(lt["decode_graph_captures"] == 0
+                      and lt["step_score"] == 0,
+                      f"{name}: a graph or the fused scorer on a mesh")
+                check(torch.equal(torch.isfinite(got["logits"]), live),
+                      f"{name}: non-finite logits")
+                logit_err = (got["logits"] - want["logits"])[live].abs() \
+                    .max().item()
+                score_err = max((abs(a - b) for sg, sw in
+                                 zip(got["scores"], want["scores"])
+                                 for a, b in zip(sg, sw)), default=0.0)
+                same = (got["tokens"] == want["tokens"]
+                        and got["statuses"] == want["statuses"]
+                        and got["num_pruned"] == want["num_pruned"])
+                bitwise = (same and got["scores"] == want["scores"]
+                           and logit_err == 0.0)
+                if world == 1:
+                    check(bitwise, f"{name}: differs from the single-device "
+                          f"engine (logits {logit_err}, scores {score_err})")
+                elif job == "smoke":
+                    check(same, f"{name}: tokens, statuses or prunes differ "
+                          f"from the single-device engine")
+                    check(score_err <= MESH_SCORE_TOL,
+                          f"{name}: step scores differ by {score_err}")
+                else:
+                    check(logit_err <= MESH_LOGIT_TOL * amax,
+                          f"{name}: first-iteration logits differ by "
+                          f"{logit_err} (largest |logit| {amax})")
+                agree = [leading_agreement(a, b) for a, b in
+                         zip(got["tokens"], want["tokens"])]
+                rows.append({
+                    "launches": {k: v for k, v in lt.items() if v},
+                    "bitwise": bitwise,
+                    "tokens_statuses_prunes_identical": same,
+                    "max_first_logit_err": logit_err,
+                    "max_step_score_err": score_err,
+                    "traces_identical": sum(a == b for a, b in
+                                            zip(got["tokens"],
+                                                want["tokens"])),
+                    "leading_tokens_agreeing": sum(agree),
+                    "tokens": sum(len(t) for t in want["tokens"]),
+                    "num_pruned": got["num_pruned"],
+                    "decode_iterations": got["decode_iterations"],
+                    "wall_ms_per_iteration": got["wall_ms_per_iteration"],
+                    "max_memory_allocated": got["max_memory_allocated"]})
+                if key == "1x2" and job == "full":
+                    decode_mesh += lt["paged_attention_decode"]
+                    prefill_mesh += lt["paged_attention_prefill"]
+            entry[job] = {"largest_first_logit": amax, "ranks": rows}
+        out["meshes"][key] = entry
+    out["tolerances"] = {"score_two_ranks": MESH_SCORE_TOL,
+                         "first_logits_two_ranks_relative": MESH_LOGIT_TOL,
+                         "one_rank": "bitwise"}
+    emit("serve_mesh", **out)
+    return {"paged_attention_decode": decode_mesh,
+            "paged_attention_prefill": prefill_mesh}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    rt = runtime()
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
@@ -3032,7 +3287,9 @@ def main() -> int:
     # serving launcher; then mamba2 (the train phase peaks at 74 GB of the
     # 80)
     del params, scorer
+    gc.collect()
     torch.cuda.empty_cache()
+    mesh_run = phase_serve_mesh(rt)
     phase_launch_train(rt)
     launch = phase_launch_serve(rt, ops)
     recurrent = {}
@@ -3169,6 +3426,14 @@ def main() -> int:
         "paged_attention_decode_g48": (
             *paged, "decode_g48_bfloat16",
             dense["granite-20b"]["launches"]["paged_attention_decode"]),
+        # a rank of serve_mesh's (1, 2) mesh (half of qwen3's heads), its
+        # launches on both ranks at full width
+        "paged_attention_decode_mesh": (
+            *paged, "decode_mesh_bfloat16",
+            mesh_run["paged_attention_decode"]),
+        "paged_attention_prefill_mesh": (
+            *paged, "prefill_mesh_bfloat16",
+            mesh_run["paged_attention_prefill"]),
         "flash_attention_hd80": (src + "flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:38",
                                  "flash_hd80_bfloat16",

@@ -4,7 +4,10 @@ their build.
 Each wrapper runs its plain PyTorch version on a CPU tensor and its CUDA
 kernel on a CUDA tensor (see the kernel modules). ``launch_counts``
 reads how often each kernel was launched, which is how a run shows that
-the main path went through the kernels.
+the main path went through the kernels. The ``*_sharded`` routes are the
+paged attention on one rank of a serving mesh (the JAX package's
+``shard_map`` wrappers): the same kernels over the rank's lanes and
+heads.
 """
 from __future__ import annotations
 
@@ -48,6 +51,57 @@ def step_score_params(hidden, params: dict):
     """Scorer params dict -> fused scorer call."""
     return step_score(hidden, params["w1"], params["b1"], params["w2"],
                       params["b2"])
+
+
+def _check_heads(tp, q, k_pool, head_dim: int) -> None:
+    """A rank's query heads and its pool's kv heads must be its share of
+    the whole: ``tp.model_n`` of them make the config's heads."""
+    H, KVH = q.shape[head_dim], k_pool.shape[2]
+    if not (tp.heads_aligned and H * tp.model_n == tp.num_heads
+            and KVH * tp.model_n == tp.num_kv_heads):
+        raise ValueError(
+            f"the sharded paged attention takes a rank's share of "
+            f"{tp.num_heads} query heads over {tp.num_kv_heads} on a "
+            f"'model' axis of {tp.model_n}: got {H} over {KVH}")
+
+
+def paged_attention_sharded(tp, q, k_pool, v_pool, block_tables, cache_lens,
+                            *, scale: float, k_scale=None, v_scale=None):
+    """Mesh decode (the JAX package's ``shard_map`` over "data" lanes and
+    "model" kv heads), on one rank: q [B/data, H/model, hd] holds the
+    rank's lanes and heads, the pools (and scales) its kv heads of every
+    block; ``block_tables`` [B, bp] and ``cache_lens`` [B] cover the whole
+    batch, and the rank takes its lanes' rows. Each (lane, kv head) cell
+    of the kernel is independent, so the rank's call computes exactly its
+    slice of the single-device call, with no collective. Launches count
+    as :func:`paged_attention`'s."""
+    _check_heads(tp, q, k_pool, 1)
+    lanes = tp.lanes(block_tables.shape[0])
+    if q.shape[0] != lanes.stop - lanes.start:
+        raise ValueError(f"q holds {q.shape[0]} lanes; this rank's share of "
+                         f"{block_tables.shape[0]} is "
+                         f"{lanes.stop - lanes.start}")
+    return paged_attention(q, k_pool, v_pool, block_tables[lanes],
+                           cache_lens[lanes], scale=scale, k_scale=k_scale,
+                           v_scale=v_scale)
+
+
+def paged_attention_prefill_sharded(tp, q, k_pool, v_pool, block_tables,
+                                    prefix_lens, num_valid, own_k, own_v, *,
+                                    scale: float, window=None, k_scale=None,
+                                    v_scale=None):
+    """Mesh chunked prefill, on one rank. A chunk job is one prompt (batch
+    1), which every "data" rank runs whole; q [1, C, H/model, hd] and the
+    own K/V [1, C, KVH/model, hd] hold the rank's heads, the pools its kv
+    heads. Launches count as :func:`paged_attention_prefill`'s."""
+    _check_heads(tp, q, k_pool, 2)
+    if own_k.shape[2] != k_pool.shape[2]:
+        raise ValueError(f"the chunk's own K/V hold {own_k.shape[2]} kv "
+                         f"heads, the pool {k_pool.shape[2]}")
+    return paged_attention_prefill(q, k_pool, v_pool, block_tables,
+                                   prefix_lens, num_valid, own_k, own_v,
+                                   scale=scale, window=window,
+                                   k_scale=k_scale, v_scale=v_scale)
 
 
 def _kernel_counts() -> Dict[str, int]:

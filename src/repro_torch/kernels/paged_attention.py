@@ -124,8 +124,12 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     KVH = k_pool.shape[2]
     k = gather_kv(k_pool, block_tables, k_scale)
     v = gather_kv(v_pool, block_tables, v_scale)
-    qg = q.reshape(B, KVH, H // KVH, hd)
-    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float()) * scale
+    qg = q.reshape(B, KVH, H // KVH, hd).float().contiguous()
+    # each kv head's scores from its own contiguous [S, hd] keys: a layout
+    # whose per-head products do not change with the number of heads,
+    # so a mesh rank that holds some of the heads gets their bits
+    kh = k.float().permute(0, 2, 1, 3).contiguous()
+    scores = (qg @ kh.transpose(-1, -2)) * scale
     slots = torch.arange(k.shape[1], device=q.device)
     valid = slots[None, :] < cache_lens[:, None]
     out = masked_softmax_pv(scores, valid[:, None, None, :], v,

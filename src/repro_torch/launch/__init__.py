@@ -1,4 +1,4 @@
 """Launchers of the PyTorch port: the step functions (``steps``), the
-training CLI (``train``), the serving CLI (``serve``) and the trained
-artifacts the serving CLI loads (``artifacts``). Multi-GPU serving
-(a mesh) is not ported yet (ROADMAP A10)."""
+training CLI (``train``), the serving CLI (``serve``), the trained
+artifacts the serving CLI loads (``artifacts``), and the serving mesh
+(``mesh``) with its sharding rules (``shardings``)."""

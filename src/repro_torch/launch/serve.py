@@ -13,13 +13,26 @@ stream per-request completions, and print the TTFT/TPOT/e2e summary:
         --arrival-rate 2.0 --chunk 32 --max-tokens-per-step 64 --stream
 
 The engine runs on the CUDA card unless ``--device`` names another
-device. ``--mesh`` (multi-GPU serving) is ROADMAP A10: any mesh other
-than ``none`` exits with a message before anything loads.
+device.
+
+Serving over a ``(data, model)`` mesh of devices takes one process per
+device, each running this launcher with the same flags:
+
+    torchrun --nproc-per-node=4 -m repro_torch.launch.serve \
+        --method step --mesh 2,2
+
+``--mesh auto`` puts every rank on "data". Each rank serves on
+``cuda:<LOCAL_RANK>`` (NCCL), or with ``--device cpu`` on the host
+(gloo); rank 0 prints the summary lines.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.launch.artifacts import load_artifacts
 from repro_torch.serving.engine import EngineConfig
@@ -31,22 +44,41 @@ from repro_torch.serving.scheduler import (SLO, TenantScheduler,
                                            parse_tenant_weights)
 
 
-def parse_mesh(spec: Optional[str]) -> None:
-    """``None``/"none" -> one device. "auto" or "DATA,MODEL" name a mesh,
-    which the port does not serve yet (ROADMAP A10): exit with a message
-    saying so; a malformed spec exits with the JAX launcher's message."""
+def parse_mesh(spec: Optional[str], device=None):
+    """``None``/"none" -> no mesh; "auto" -> every rank on "data";
+    "D,M" -> (data=D, model=M), validated against the ranks. The mesh
+    spans the default process group, which a launcher such as torchrun
+    starts: initialized here from torchrun's environment (gloo for a CPU
+    ``device``, else NCCL), or already initialized by the caller.
+    Without either it exits with a message, before anything loads."""
     if spec is None or spec.lower() == "none":
         return None
+    from repro_torch.launch.mesh import make_host_mesh
+    sizes = (None, None)
     if spec.lower() != "auto":
         try:
             data_s, model_s = spec.split(",")
-            int(data_s), int(model_s)
+            sizes = (int(data_s), int(model_s))
         except ValueError:
             raise SystemExit(f"--mesh expects 'auto' or 'DATA,MODEL' "
                              f"(e.g. 2,2), got {spec!r}")
-    raise SystemExit(f"--mesh {spec}: multi-GPU serving is not ported to "
-                     f"repro_torch yet (ROADMAP A10); omit --mesh or pass "
-                     f"'none' to serve on one device")
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--mesh {spec}: serving over a mesh runs one process per "
+                f"device: start them with torchrun --nproc-per-node=<N> "
+                f"(no torch.distributed process group is initialized)")
+        if device is not None and torch.device(device).type == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            local = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                            "0")))
+            torch.cuda.set_device(local)
+            dist.init_process_group("nccl", device_id=local)
+    try:
+        return make_host_mesh(*sizes)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
 
 
 def main(argv: Optional[List[str]] = None) -> EvalResult:
@@ -134,16 +166,26 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
     ap.add_argument("--stream", action="store_true",
                     help="print each request's result as it completes")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve over a device mesh ('auto' or sizes like "
-                         "'2,2'): not ported yet (ROADMAP A10), so any "
-                         "value but 'none' exits; default: one device")
+                    help="serve over a device mesh, one process per "
+                         "device (torchrun --nproc-per-node=N): 'auto' "
+                         "(every rank on data) or sizes like '2,2'; "
+                         "default: one device")
     ap.add_argument("--device", default=None,
                     help="torch device of the engine (default: cuda; "
                          "'cpu' serves on the host)")
     args = ap.parse_args(argv)
-    parse_mesh(args.mesh)
+    mesh = parse_mesh(args.mesh, args.device)
+    rank0 = mesh is None or dist.get_rank() == 0
+    device = args.device
+    if mesh is not None and device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
 
-    params, scorer, cfg = load_artifacts(device=args.device)
+    # on a mesh rank 0 loads first: it builds missing artifacts alone
+    if not rank0:
+        dist.barrier()
+    params, scorer, cfg = load_artifacts(device=device)
+    if mesh is not None and rank0:
+        dist.barrier()
 
     # CLI flags override REPRO_* env vars, which override the dataclass
     # defaults (EngineConfig.from_env resolves env < explicit overrides).
@@ -193,7 +235,7 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
                                     seed=args.seed)
 
         def on_result(r):
-            if not args.stream:
+            if not args.stream or not rank0:
                 return
             m = r.metrics
             if r.status != "completed" or m.ttft_s is None:
@@ -211,14 +253,20 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
             scorer_params=scorer, policy_kwargs=pkw,
             arrival_times=arrivals, on_result=on_result,
             scheduler=scheduler, request_overrides=overrides,
-            verbose=not args.stream, device=args.device)
+            verbose=rank0 and not args.stream, mesh=mesh, device=device)
     else:
         res = evaluate_method(args.method, params, cfg, problems,
                               args.traces, ecfg, scorer_params=scorer,
-                              policy_kwargs=pkw, verbose=True,
-                              device=args.device)
+                              policy_kwargs=pkw, verbose=rank0, mesh=mesh,
+                              device=device)
+    if rank0:
+        print_summary(args.method, res)
+    return res
 
-    print(f"\n[{args.method}] acc={res.accuracy:.2f} "
+
+def print_summary(method: str, res: EvalResult) -> None:
+    """The JAX launcher's summary lines."""
+    print(f"\n[{method}] acc={res.accuracy:.2f} "
           f"tokens={res.avg_tokens:.0f} latency={res.avg_latency_s:.2f}s "
           f"wait={res.total_wait_s:.2f}s pruned={res.num_pruned} "
           f"preempt={res.num_preemptions}")
@@ -247,7 +295,6 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
                   f"ttft_attainment={att['ttft_attainment']} "
                   f"tpot_attainment={att['tpot_attainment']} "
                   f"degraded_traces={s['degraded_traces']}")
-    return res
 
 
 if __name__ == "__main__":

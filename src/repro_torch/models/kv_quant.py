@@ -145,12 +145,14 @@ def pool_block_bytes(cfg: ModelConfig, kv_dtype: str) -> int:
 
 
 def init_scales(cfg: ModelConfig, num_blocks: int, kv_dtype: str,
-                device="cpu") -> Optional[torch.Tensor]:
+                device="cpu", kv_heads: Optional[int] = None
+                ) -> Optional[torch.Tensor]:
     """Unit scales ``[attn_layers, num_blocks, block_size, kv_heads]`` for
     a quantized pool (a zero-filled pool dequantizes to exact zeros), or
-    ``None`` for a float pool."""
+    ``None`` for a float pool. ``kv_heads`` defaults to the config's."""
     if not is_quantized(kv_dtype):
         return None
     la = len(cfg.attention_layer_ids())
-    return torch.ones((la, num_blocks, cfg.kv_block_size, cfg.num_kv_heads),
+    kvh = cfg.num_kv_heads if kv_heads is None else kv_heads
+    return torch.ones((la, num_blocks, cfg.kv_block_size, kvh),
                       dtype=torch.float32, device=device)

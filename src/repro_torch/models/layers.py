@@ -15,10 +15,12 @@ beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -31,6 +33,86 @@ from repro_torch.kernels.paged_attention import (
 # the one-token Mamba2 steps live beside their fused kernel
 from repro_torch.kernels.ssm_decode import (  # noqa: F401
     causal_conv1d_step, ssd_decode_step, ssm_decay, ssm_decode_plain)
+
+
+# ---------------------------------------------------------------------------
+# a rank's place on the serving mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One rank of a ``("data", "model")`` serving mesh, as the layers
+    see it. Its params are the rank's shards under
+    ``launch.shardings.serving_param_specs``: the column-parallel weights
+    hold a ``1/model_n`` slice of their output columns, the embedding a
+    slice of its vocab rows, the rest is whole. The rank runs lanes
+    :meth:`lanes` of the decode batch and, when :attr:`heads_aligned`
+    (the config's ``num_heads`` and ``num_kv_heads`` both divide
+    "model"), its own query and kv heads; its pools hold those kv heads.
+
+    Where the reference places ``with_sharding_constraint``s, the layers
+    call the all-gathers below; a float is never reduced across ranks,
+    so each rank computes exactly the single-device values of its
+    slice. ``stage_host``: the group is gloo and the tensors are on a
+    card, so each gather goes through host copies."""
+    model_group: object
+    model_rank: int
+    model_n: int
+    data_group: object
+    data_rank: int
+    data_n: int
+    num_heads: int
+    num_kv_heads: int
+    vocab_rows: int          # the whole embedding's rows (padded vocab)
+    stage_host: bool = False
+
+    @property
+    def heads_aligned(self) -> bool:
+        return all(n >= self.model_n and n % self.model_n == 0
+                   for n in (self.num_heads, self.num_kv_heads))
+
+    def lanes(self, batch: int) -> slice:
+        """This rank's lanes of a ``batch``-lane decode batch."""
+        n = batch // self.data_n
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def _gather(self, x: torch.Tensor, group, n: int, dim: int):
+        if n == 1:
+            return x
+        src = x.contiguous()
+        if self.stage_host:
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def gather_model(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The "model" ranks' pieces of ``x``, joined along ``dim``."""
+        return self._gather(x, self.model_group, self.model_n, dim)
+
+    def gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The "data" ranks' pieces of ``x`` (their lanes), joined along
+        ``dim``."""
+        return self._gather(x, self.data_group, self.data_n, dim)
+
+    def full_cols(self, y: torch.Tensor, width: int) -> torch.Tensor:
+        """``y`` with its whole last dim of ``width``: the output of a
+        column-parallel product is gathered over "model" where the
+        weight was split (a no-op where it is whole)."""
+        if y.shape[-1] == width:
+            return y
+        return self.gather_model(y, dim=-1)
+
+
+def _heads(tp: Optional[TensorParallel], y: torch.Tensor, n: int,
+           hd: int) -> torch.Tensor:
+    """A projection's output [..., cols] as heads [..., n_local, hd]. On a
+    mesh whose heads do not align, a split output is gathered whole
+    first (its columns need not fall on head boundaries), and attention
+    runs on every head on each "model" rank."""
+    if tp is not None and not tp.heads_aligned:
+        y = tp.full_cols(y, n * hd)
+    return y.reshape(*y.shape[:-1], -1, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -67,11 +149,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # feed-forward
 # ---------------------------------------------------------------------------
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """p: {w_gate [D,F], w_up [D,F], w_down [F,D]}"""
+def swiglu(p: dict, x: torch.Tensor,
+           tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """p: {w_gate [D,F], w_up [D,F], w_down [F,D]}
+
+    ``tp`` (serving mesh): the column-parallel gate/up outputs are this
+    rank's slice of F; the activation is gathered whole over "model"
+    before the whole ``w_down``, so the contraction over F is the
+    single-device one (a split contraction would sum partial products
+    across ranks, in another rounding)."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     act = F.silu(g.float()).to(x.dtype) * u
+    if tp is not None:
+        act = tp.full_cols(act, p["w_down"].shape[-2])
     return act @ p["w_down"]
 
 
@@ -260,7 +351,8 @@ def gqa_attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        positions: torch.Tensor,
                        window: Optional[int] = None,
                        return_kv: bool = False,
-                       use_kernel: bool = False):
+                       use_kernel: bool = False,
+                       tp: Optional[TensorParallel] = None):
     """Full-sequence GQA attention.
 
     p: {wq [D, H*hd], wk [D, KVH*hd], wv [D, KVH*hd], wo [H*hd, D],
@@ -269,13 +361,17 @@ def gqa_attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ``use_kernel`` runs the attention through the flash-attention wrapper
     (the CUDA kernel on a CUDA tensor, its plain version on the CPU),
     with the kv heads broadcast to the query heads first. The wrapper has
-    no backward, as the JAX kernel has none.
+    no backward, as the JAX kernel has none. ``tp`` (serving mesh, a
+    batch-1 prefill that every "data" rank runs whole): the rank attends
+    over its own heads (all of them where heads do not align), returns
+    those K/V, and gathers the heads over "model" before ``wo``.
     """
     B, S, D = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KVH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KVH, hd)
+    q = _heads(tp, x @ p["wq"], H, hd)
+    k = _heads(tp, x @ p["wk"], KVH, hd)
+    v = _heads(tp, x @ p["wv"], KVH, hd)
+    H, KVH = q.shape[2], k.shape[2]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -308,6 +404,8 @@ def gqa_attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = masked_softmax_pv(scores, mask[None, None, None], v,
                                 "bkgqs,bskh->bqkgh")
         out = out.to(x.dtype).reshape(B, S, H * hd)
+    if tp is not None:
+        out = tp.full_cols(out, p["wo"].shape[-2])
     out = out @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -407,7 +505,8 @@ def paged_attention_decode(pool_k: torch.Tensor, pool_v: torch.Tensor,
                            cache_lens: torch.Tensor, scale: float,
                            use_kernel: bool = False,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           tp: Optional[TensorParallel] = None
                            ) -> torch.Tensor:
     """Decode attention over the paged pool: q [B, H, hd]; pools
     [N_blocks, bs, KVH, hd]; block_tables [B, bp]; cache_lens [B] i32;
@@ -415,7 +514,17 @@ def paged_attention_decode(pool_k: torch.Tensor, pool_v: torch.Tensor,
     gathered pages are dequantized (f32 cast, times the slot's scale)
     before the scores. Returns [B, H, hd]. ``use_kernel`` goes through the
     kernel wrapper (the CUDA kernel on a CUDA tensor, its plain version on
-    the CPU), which dequantizes inside its page loop."""
+    the CPU), which dequantizes inside its page loop. ``tp`` (serving
+    mesh): q holds this rank's lanes and heads, the pools its kv heads,
+    while the tables and lengths cover the whole batch; the kernel goes
+    through the sharded route."""
+    if tp is not None:
+        if use_kernel:
+            return kops.paged_attention_sharded(
+                tp, q, pool_k, pool_v, block_tables, cache_lens, scale=scale,
+                k_scale=k_scale, v_scale=v_scale)
+        lanes = tp.lanes(block_tables.shape[0])
+        block_tables, cache_lens = block_tables[lanes], cache_lens[lanes]
     if use_kernel:
         return kops.paged_attention(q, pool_k, pool_v, block_tables,
                                     cache_lens, scale=scale,
@@ -435,12 +544,24 @@ def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     block_tables, window_len and use_kernel. ``writer`` [B] (the hybrid:
     :func:`last_writer`) gives each lane the lane whose K/V it writes.
     The pools are written in place. Returns out [B, 1, D].
+
+    ``cache["tp"]`` (serving mesh): x holds this rank's lanes of the
+    batch, while positions and the block tables cover the whole batch.
+    The new K/V of every lane is gathered over "data" and written by
+    each rank into its copy of the pool (its kv heads of every block), so
+    the copies stay the same; the rank then attends for its own lanes
+    and heads and gathers the heads over "model" before ``wo``.
     """
     B, _, D = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, H, hd)
-    k = (x @ p["wk"]).reshape(B, KVH, hd)
-    v = (x @ p["wv"]).reshape(B, KVH, hd)
+    hd = cfg.head_dim
+    tp = cache.get("tp")
+    all_positions = positions
+    if tp is not None:
+        positions = positions[tp.lanes(positions.shape[0])]
+    q = _heads(tp, (x @ p["wq"]).reshape(B, -1), cfg.num_heads, hd)
+    k = _heads(tp, (x @ p["wk"]).reshape(B, -1), cfg.num_kv_heads, hd)
+    v = _heads(tp, (x @ p["wv"]).reshape(B, -1), cfg.num_kv_heads, hd)
+    H = q.shape[1]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -448,6 +569,9 @@ def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cos, sin = cos[:, None, :], sin[:, None, :]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)  # rope applied at write time
+    if tp is not None:       # every rank writes every lane's K/V
+        k, v = tp.gather_data(k), tp.gather_data(v)
+        positions = all_positions
     if writer is not None:   # lanes sharing a slot write its last writer's
         k, v = k[writer], v[writer]
 
@@ -465,8 +589,11 @@ def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
         cache["k_pool"], cache["v_pool"], q, cache["block_tables"],
         new_lens, scale=1.0 / math.sqrt(hd),
         use_kernel=cache.get("use_kernel", False),
-        k_scale=k_scale, v_scale=v_scale)
-    return out.reshape(B, 1, H * hd) @ p["wo"]
+        k_scale=k_scale, v_scale=v_scale, tp=tp)
+    out = out.reshape(B, 1, H * hd)
+    if tp is not None:
+        out = tp.full_cols(out, p["wo"].shape[-2])
+    return out @ p["wo"]
 
 
 def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -476,7 +603,8 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                 window: Optional[int] = None,
                                 use_kernel: bool = False,
                                 k_scale: Optional[torch.Tensor] = None,
-                                v_scale: Optional[torch.Tensor] = None
+                                v_scale: Optional[torch.Tensor] = None,
+                                tp: Optional[TensorParallel] = None
                                 ) -> torch.Tensor:
     """Prefill one chunk of a prompt against the paged KV cache.
 
@@ -489,12 +617,17 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     [N_blocks, bs, KVH] mark a quantized pool: the chunk is written
     through the quantizing scatter and the pooled prefix is read
     dequantized (the own K/V stays exact). Returns out [B, C, D].
+
+    ``tp`` (serving mesh): every "data" rank runs the (batch-1) chunk
+    whole, over its own heads and its pools' kv heads, and gathers the
+    heads over "model" before ``wo``.
     """
     B, C, D = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, C, H, hd)
-    k = (x @ p["wk"]).reshape(B, C, KVH, hd)
-    v = (x @ p["wv"]).reshape(B, C, KVH, hd)
+    hd = cfg.head_dim
+    q = _heads(tp, x @ p["wq"], cfg.num_heads, hd)
+    k = _heads(tp, x @ p["wk"], cfg.num_kv_heads, hd)
+    v = _heads(tp, x @ p["wv"], cfg.num_kv_heads, hd)
+    H = q.shape[2]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -513,7 +646,11 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
     # chunk start doubles as the pooled-prefix length
     prefix_lens = positions[:, 0].to(torch.int32)
     num_valid = valid.sum(dim=1, dtype=torch.int32)
-    if use_kernel:
+    if use_kernel and tp is not None:
+        out = kops.paged_attention_prefill_sharded(
+            tp, q, k_pool, v_pool, block_tables, prefix_lens, num_valid, k,
+            v, scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
+    elif use_kernel:
         out = kops.paged_attention_prefill(
             q, k_pool, v_pool, block_tables, prefix_lens, num_valid, k, v,
             scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
@@ -526,7 +663,10 @@ def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = paged_attention_prefill_plain(
             q, k_pool, v_pool, block_tables, prefix_lens, num_valid, own_k,
             own_v, scale, window, k_scale, v_scale)
-    return out.reshape(B, C, H * hd) @ p["wo"]
+    out = out.reshape(B, C, H * hd)
+    if tp is not None:
+        out = tp.full_cols(out, p["wo"].shape[-2])
+    return out @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

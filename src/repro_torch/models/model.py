@@ -97,22 +97,37 @@ def _groups(cfg: ModelConfig):
     return cfg.num_layers // per, per
 
 
-def _embed(params, cfg, tokens):
-    return params["embed"][tokens.long()]
+def _embed(params, cfg, tokens, tp: Optional[L.TensorParallel] = None):
+    """Token embeddings. On a mesh whose embedding is split over "model"
+    by vocab rows, each rank looks up the rows it holds; the ranks'
+    lookups are gathered and each token takes its owner's row, which is
+    exact (a gather, not a sum)."""
+    emb = params["embed"]
+    t = tokens.long()
+    if tp is None or emb.shape[0] == tp.vocab_rows:
+        return emb[t]
+    rows = emb.shape[0]
+    owner = t // rows
+    local = emb[(t - tp.model_rank * rows).clamp(0, rows - 1)]
+    every = tp.gather_model(local[None], dim=0)         # [model_n, ..., D]
+    return torch.take_along_dim(every, owner[None, ..., None], dim=0)[0]
 
 
-def _logits(params, cfg, h):
-    if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+def _logits(params, cfg, h, tp: Optional[L.TensorParallel] = None):
+    """Logits over the padded vocab; on a mesh the rank's vocab columns
+    are gathered over "model"."""
+    out = h @ (params["embed"].T if cfg.tie_embeddings
+               else params["lm_head"])
+    return out if tp is None else tp.full_cols(out, tp.vocab_rows)
 
 
-def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor):
+def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+         tp: Optional[L.TensorParallel] = None):
     """A decoder layer's feed-forward: (the MoE's output and aux loss), or
     (the SwiGLU's output, None)."""
     if cfg.uses_moe:
         return L.moe_layer(lp["moe"], cfg, x)
-    return L.swiglu(lp["mlp"], x), None
+    return L.swiglu(lp["mlp"], x, tp), None
 
 
 def _body(remat: bool, fn, *args):
@@ -132,7 +147,8 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     return_kv: bool, use_kernel: bool,
                     modality_embeds: Optional[torch.Tensor] = None,
                     encoder_embeds: Optional[torch.Tensor] = None,
-                    remat: bool = False):
+                    remat: bool = False,
+                    tp: Optional[L.TensorParallel] = None):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
     kvs or None, the summed aux loss of the MoE layers: f32, 0 without
     them)."""
@@ -144,7 +160,7 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                              "encoder_embeds [B, T, D]")
         enc_out = encode(params, cfg, encoder_embeds, remat=remat)
     B, S = tokens.shape
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, tp)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.modality == "vision" and modality_embeds is not None:
         # the stub frontend's embeddings replace the first n positions'
@@ -162,7 +178,7 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     kvs = []
     for l in range(cfg.num_layers):
         h, kv, aux_l = _body(remat, _attn_block_full, _layer(params, l), cfg,
-                             h, positions, return_kv, use_kernel, enc_out)
+                             h, positions, return_kv, use_kernel, enc_out, tp)
         if aux_l is not None:
             aux = aux + aux_l
         kvs.append(kv)
@@ -178,7 +194,8 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, return_kv: bool,
                      use_kernel: bool,
-                     enc_out: Optional[torch.Tensor] = None):
+                     enc_out: Optional[torch.Tensor] = None,
+                     tp: Optional[L.TensorParallel] = None):
     """One decoder layer (``ln1`` -> GQA or MLA -> residual, with
     ``enc_out`` ``ln_cross`` -> cross-attention -> residual, ``ln2`` ->
     SwiGLU or MoE -> residual) over a full sequence: (h, (k, v), MLA's
@@ -193,14 +210,14 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
         res = L.gqa_attention_full(lp["attn"], cfg, a_in, positions,
                                    window=cfg.sliding_window,
                                    return_kv=return_kv,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, tp=tp)
     a, kv = res if return_kv else (res, None)
     h = h + a
     if enc_out is not None:
         h = h + L.cross_attention(
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             *L.cross_kv(lp["cross"], cfg, enc_out))
-    m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
     return h + m, kv, aux
 
 
@@ -304,7 +321,8 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  return_kv: bool = False, use_kernel: bool = False,
                  modality_embeds: Optional[torch.Tensor] = None,
                  encoder_embeds: Optional[torch.Tensor] = None,
-                 remat: bool = False) -> dict:
+                 remat: bool = False,
+                 tp: Optional[L.TensorParallel] = None) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
     stack, MLA's latent entries [L, B, S, kv_lora + rope], (ssm_state
@@ -322,11 +340,14 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     losses (f32 0 without MoE). ``remat`` checkpoints each layer (each
     group of the hybrid, each encoder block): the backward pass recomputes
     a layer's intermediates from its input instead of keeping them, as
-    the JAX package's ``jax.checkpoint`` does."""
+    the JAX package's ``jax.checkpoint`` does. ``tp`` (serving mesh, the
+    dense GQA stack): every "data" rank runs the batch whole, over its
+    own heads, and the kvs hold the kv heads its pools hold; the logits
+    are gathered over "model"."""
     hidden, kvs, aux = _forward_hidden(params, cfg, tokens, return_kv,
                                        use_kernel, modality_embeds,
-                                       encoder_embeds, remat)
-    out = {"logits": _logits(params, cfg, hidden), "hidden": hidden,
+                                       encoder_embeds, remat, tp)
+    out = {"logits": _logits(params, cfg, hidden, tp), "hidden": hidden,
            "aux_loss": aux}
     if return_kv:
         out["kvs"] = kvs
@@ -339,7 +360,8 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: dict, window_len: int,
-                use_kernel: bool = False) -> dict:
+                use_kernel: bool = False,
+                tp: Optional[L.TensorParallel] = None) -> dict:
     """tokens [B, 1]; positions [B]; cache {k_pool, v_pool, block_tables,
     and k_scale/v_scale for an int8/fp8 pool} for the dense stack
     ({kv_pool, block_tables} with MLA; an encoder-decoder's also holds
@@ -352,9 +374,16 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     update, through the kernel wrappers (MLA has no kernel path: it
     stays dense, as in the JAX package). Nothing here syncs the host or
     sizes a tensor from data, so the step captures in a CUDA graph.
+    ``tp`` (serving mesh, the dense GQA stack): tokens, positions and the
+    block tables cover the whole batch; the rank runs its lanes (its
+    heads of them), writes every lane's K/V into its pools, and gathers
+    the logits over "model" and "data", while the hidden state stays
+    the rank's lanes'.
     Returns {logits [B, Vp], hidden [B, D], cache}."""
     check_ported(cfg)
-    h = _embed(params, cfg, tokens)  # [B, 1, D]
+    if tp is not None:
+        tokens = tokens[tp.lanes(tokens.shape[0])]
+    h = _embed(params, cfg, tokens, tp)  # [B, 1, D]
     if cfg.arch_type == "ssm":
         for l in range(cfg.num_layers):
             h = _mamba_decode(_layer(params, l), cfg, h, cache, l,
@@ -382,10 +411,12 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   if cfg.uses_moe else None)
         for l in range(cfg.num_layers):
             h = _attn_decode(_layer(params, l), cfg, h, positions, cache, l,
-                             window_len, use_kernel, writer)
+                             window_len, use_kernel, writer, tp)
     hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
-    return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
-            "cache": dict(cache)}
+    logits = _logits(params, cfg, hidden, tp)
+    if tp is not None:
+        logits = tp.gather_data(logits)
+    return {"logits": logits, "hidden": hidden, "cache": dict(cache)}
 
 
 def _mamba_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
@@ -404,12 +435,14 @@ def _mamba_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
 def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                  positions: torch.Tensor, cache: dict, idx: int,
                  window_len: int, use_kernel: bool,
-                 writer: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 writer: Optional[torch.Tensor] = None,
+                 tp: Optional[L.TensorParallel] = None) -> torch.Tensor:
     """One decoder layer's decode against entry ``idx`` of the paged
     pools (written in place; ``writer``: ``layers.last_writer``) and, for
     an encoder-decoder, of the cross caches."""
     layer_cache = {"block_tables": cache["block_tables"],
-                   "window_len": window_len, "use_kernel": use_kernel}
+                   "window_len": window_len, "use_kernel": use_kernel,
+                   "tp": tp}
     for key in POOL_KEYS:
         if key in cache:
             layer_cache[key] = cache[key][idx]
@@ -420,7 +453,7 @@ def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
         h = h + L.cross_attention(
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             cache["cross_k"][idx], cache["cross_v"][idx])
-    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
+    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +466,8 @@ def multi_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                       rng: Optional[torch.Generator], sample_fn,
                       eos_id: int, step_id: int, score_fn=None,
                       scratch_block: int = 0,
-                      use_kernel: bool = False) -> dict:
+                      use_kernel: bool = False,
+                      tp: Optional[L.TensorParallel] = None) -> dict:
     """Run ``horizon`` decode iterations; the host consumes the [B, K]
     bursts once per K tokens.
 
@@ -453,7 +487,11 @@ def multi_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     Nothing here syncs the host or sizes a tensor from data: on a CUDA
     engine the whole horizon is captured as one CUDA graph
     (``serving/cuda_graph.py``), the counterpart of the JAX package's
-    jitted scan.
+    jitted scan. ``tp`` (serving mesh): each iteration's
+    :func:`decode_step` runs on the rank's lanes and returns the whole
+    batch's logits, which every rank samples from alike, so the lanes'
+    state here is the whole batch's on every rank; ``score_fn`` gets the
+    rank's lanes' hidden states and returns the whole batch's scores.
 
     Returns {tokens, confidences, scores, token_valid, score_valid} each
     [B, K], final_tokens [B], positions [B] and cache (the pools, without
@@ -467,7 +505,8 @@ def multi_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for k in range(horizon):
         out = decode_step(params, cfg, ct[:, None], pos,
                           {**pools, "block_tables": bt},
-                          window_len=window_len, use_kernel=use_kernel)
+                          window_len=window_len, use_kernel=use_kernel,
+                          tp=tp)
         nt, conf = sample_fn(rng, out["logits"])
         if score_fn is not None:
             scores = score_fn(out["hidden"])
@@ -504,7 +543,8 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
 def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        positions: torch.Tensor, valid: torch.Tensor,
                        cache: dict, window_len: int,
-                       use_kernel: bool = False) -> dict:
+                       use_kernel: bool = False,
+                       tp: Optional[L.TensorParallel] = None) -> dict:
     """Prefill one prompt chunk into the paged KV cache (in place).
 
     tokens [B, C] (right-padded to the chunk width); positions [B, C]
@@ -512,10 +552,12 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     chunks' KV must already be in the pool. The chunk attends within
     ``cfg.sliding_window``; an MoE layer routes all B*C slots, the
     padded ones too (they take expert capacity, as in the JAX package).
+    ``tp`` (serving mesh): every "data" rank runs the chunk whole, over
+    its own heads and pools; the logits are gathered over "model".
     Returns {logits [B, C, Vp], hidden, cache}."""
     _check_dense(cfg)
     quant = "k_scale" in cache  # int8/fp8 pool
-    h = _embed(params, cfg, tokens)  # [B, C, D]
+    h = _embed(params, cfg, tokens, tp)  # [B, C, D]
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         a = L.gqa_attention_prefill_chunk(
@@ -524,11 +566,11 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             cache["block_tables"], window_len, window=cfg.sliding_window,
             use_kernel=use_kernel,
             k_scale=cache["k_scale"][l] if quant else None,
-            v_scale=cache["v_scale"][l] if quant else None)
+            v_scale=cache["v_scale"][l] if quant else None, tp=tp)
         h = h + a
-        h = h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
+        h = h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)[0]
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
+    return {"logits": _logits(params, cfg, hidden, tp), "hidden": hidden,
             "cache": dict(cache)}
 
 
@@ -627,8 +669,8 @@ def write_contiguous_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
                       num_blocks: Optional[int] = None,
                       kv_dtype: str = "bf16",
-                      device=None, encoder_len: Optional[int] = None
-                      ) -> dict:
+                      device=None, encoder_len: Optional[int] = None,
+                      kv_heads: Optional[int] = None) -> dict:
     """Zeroed paged pools [L, NB, bs, KVH, hd] plus default block tables
     (sequence b owns blocks [b*bp, (b+1)*bp)), on ``device`` (CUDA unless
     the caller names the CPU). ``capacity`` = per-sequence token capacity
@@ -646,9 +688,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     encoder-decoder adds zeroed bf16 ``cross_k``/``cross_v`` [L, batch,
     T, KVH, hd] for T = ``encoder_len`` (default: the config's
     ``encoder_seq_len``, else 1024), which the caller replaces with
-    :func:`build_cross_cache`'s."""
+    :func:`build_cross_cache`'s. ``kv_heads`` sizes the GQA pools and
+    their scales with fewer kv heads than the config's: a rank of a
+    serving mesh holds only its own."""
     check_ported(cfg)
     device = resolve_device(device)
+    kvh = cfg.num_kv_heads if kv_heads is None else kv_heads
     bs = cfg.kv_block_size
     bp = -(-capacity // bs)
     nb = num_blocks if num_blocks is not None else batch * bp
@@ -663,11 +708,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
                    if kv_dtype in ("f32", "bf16") else torch.bfloat16),
             device=device)
     elif la:
-        shape = (la, nb, bs, cfg.num_kv_heads, cfg.head_dim)
+        shape = (la, nb, bs, kvh, cfg.head_dim)
         dt = kv_quant.kv_pool_dtype(kv_dtype)
         cache["k_pool"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v_pool"] = torch.zeros(shape, dtype=dt, device=device)
-        scales = kv_quant.init_scales(cfg, nb, kv_dtype, device=device)
+        scales = kv_quant.init_scales(cfg, nb, kv_dtype, device=device,
+                                      kv_heads=kvh)
         if scales is not None:
             cache["k_scale"] = scales
             cache["v_scale"] = scales.clone()

@@ -41,18 +41,32 @@ What differs is the device side:
     outputs the same way and runs the horizon eagerly. The engine keeps
     one device pool (and recurrent state) for its lifetime, zeroed in
     place where the JAX engine makes a fresh one, so that the graphs
-    keep reading the storage they were captured over.
+    keep reading the storage they were captured over;
+  * a mesh engine (``mesh``: a ``("data", "model")`` DeviceMesh,
+    ``launch.mesh.make_host_mesh``) is one process per rank, each running
+    the whole host scheduler and its share of the device work, in the
+    JAX engine's layout (``launch/shardings.py``): params
+    tensor-parallel over "model" where every collective is an all-gather
+    of activations, the pool's kv heads over "model" with every block on
+    every "data" rank, the decode lanes over "data". The ranks sample
+    alike from the gathered logits, read one clock (rank 0's, through
+    :meth:`Engine.agreed_clock`), and check after each ``serve_batch``
+    that they made the same decisions. Its decode horizon runs eagerly:
+    capturing the collectives in the horizon's graph waits for a machine
+    of several cards.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pruning import DeepConfPolicy, PruningPolicy
@@ -61,7 +75,9 @@ from repro_torch.core.trace import Trace, TraceStatus
 from repro_torch.data.tokenizer import get_tokenizer
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import axis_names, axis_size
 from repro_torch.models import kv_quant
+from repro_torch.models.layers import TensorParallel
 from repro_torch.models.model import (POOL_KEYS, copy_kv_block,
                                       forward_full,
                                       init_decode_cache, multi_decode_step,
@@ -111,8 +127,8 @@ def _default_kv_dtype():
     return os.environ.get("REPRO_KV_DTYPE", "").strip().lower() or "bf16"
 
 
-def resolve_use_kernel(setting, cfg: ModelConfig,
-                       device: torch.device) -> bool:
+def resolve_use_kernel(setting, cfg: ModelConfig, device: torch.device,
+                       mesh=None) -> bool:
     """Resolve ``EngineConfig.use_kernel`` (False / True / "auto") to the
     bool the steps consume. "auto" picks the CUDA kernels on a CUDA
     engine and the dense path on a CPU engine (where the kernel wrappers
@@ -120,18 +136,30 @@ def resolve_use_kernel(setting, cfg: ModelConfig,
     those plain versions, as interpret mode does for the JAX package.
     The kernels cover GQA paged attention: for MLA "auto" resolves to the
     dense path on every device and ``True`` raises, as in the JAX
-    package."""
+    package. On a ``mesh`` the kernel path also needs the query and kv
+    heads to divide the "model" axis, so that each rank's kernel call is
+    its own (lane, kv head) cells; elsewhere "auto" resolves dense and
+    ``True`` raises."""
     if setting is False or setting is None:
         return False
     if setting not in (True, "auto"):
         raise ValueError(
             f"use_kernel must be True, False or 'auto', got {setting!r}")
-    if cfg.use_mla:
+    covered = not cfg.use_mla
+    why = "MLA's absorbed latent decode has no kernel path"
+    if covered and mesh is not None:
+        model_n = axis_size(mesh, "model")
+        covered = (cfg.num_heads % model_n == 0
+                   and cfg.num_kv_heads % model_n == 0)
+        why = (f"kernel-on-mesh needs num_heads ({cfg.num_heads}) and "
+               f"num_kv_heads ({cfg.num_kv_heads}) divisible by the "
+               f"'model' axis ({model_n}) so the sharded paged attention "
+               f"stays on each rank's own heads; use use_kernel='auto' to "
+               f"fall back to the dense path on this mesh")
+    if not covered:
         if setting == "auto":
             return False
-        raise NotImplementedError(
-            "use_kernel=True: MLA's absorbed latent decode has no kernel "
-            "path")
+        raise NotImplementedError(f"use_kernel=True: {why}")
     if setting == "auto":
         return device.type == "cuda"
     return True
@@ -248,7 +276,18 @@ class Engine:
 
     ``params`` / ``scorer_params`` are the port's dicts of tensors (see
     ``models.init`` / ``models.bridge``); they are moved to ``device``.
-    ``mesh`` (multi-GPU serving) is ROADMAP A10 and raises.
+
+    ``mesh`` (a ``("data", "model")`` DeviceMesh over the initialized
+    default process group) makes this engine one rank of a mesh engine:
+    every rank builds it with the same arguments and serves the same
+    requests. It keeps only its shards of ``params`` (the scorer whole)
+    and runs on ``device``, by default ``cuda:<LOCAL_RANK>``. A mesh
+    engine covers the dense GQA archs (an ssm, hybrid, encoder-decoder,
+    MLA or MoE config raises ``NotImplementedError``, as the JAX
+    engine's does) and needs ``max_batch`` to be a multiple of the
+    "data" axis. Its serves equal the single-device engine's: tokens,
+    scores, statuses and prunes.
+
     ``_eager_decode`` calls the decode horizon directly instead of through
     its :class:`DecodeGraph`: for tests that hold the graphs against the
     eager horizon, not for serving."""
@@ -259,9 +298,11 @@ class Engine:
                  mesh=None,
                  scheduler: Optional[SchedulingPolicy] = None,
                  device=None, _eager_decode: bool = False):
+        self.mesh = mesh
+        self.tp: Optional[TensorParallel] = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported to repro_torch yet (ROADMAP A10)")
+            _check_mesh(mesh, cfg, ecfg)
+            device = _rank_device(device)
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "the engine serves decoder-only stacks: no engine path "
@@ -269,12 +310,16 @@ class Engine:
                 "engine's prefill fails on forward_full's missing "
                 "encoder_embeds)")
         self.device = resolve_device(device)
-        self.params = _tree_to(params, self.device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.policy = policy
         self.scorer_params = (None if scorer_params is None
                               else _tree_to(scorer_params, self.device))
+        self._kv_heads = cfg.num_kv_heads
+        if mesh is None:
+            self.params = _tree_to(params, self.device)
+        else:
+            self._place_on_mesh(params)
         self.scheduler = (scheduler if scheduler is not None
                           else default_scheduler())
         self.tok = get_tokenizer()
@@ -297,7 +342,7 @@ class Engine:
         self._pool: Optional[dict] = None   # the device pool, for life
         self._eager_decode = _eager_decode
         self.use_kernel = resolve_use_kernel(ecfg.use_kernel, cfg,
-                                             self.device)
+                                             self.device, mesh)
         if ecfg.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         self.horizon_fallbacks = 0
@@ -312,6 +357,77 @@ class Engine:
         self._build_steps()
 
     # ------------------------------------------------------------------
+    # the serving mesh
+    # ------------------------------------------------------------------
+    def _place_on_mesh(self, params: dict) -> None:
+        """Keep this rank's shards of ``params`` (on its device) and build
+        the layers' :class:`TensorParallel` context."""
+        from repro_torch.launch.shardings import (local_slice, mesh_coords,
+                                                  serving_cache_specs,
+                                                  serving_param_specs)
+        mesh, cfg = self.mesh, self.cfg
+        coords = mesh_coords(mesh)
+        specs = serving_param_specs(cfg, mesh, params)
+
+        def shard(tree, spec_tree):
+            return {k: (shard(v, spec_tree[k]) if isinstance(v, dict)
+                        else _owned(v, local_slice(v, spec_tree[k], mesh,
+                                                   coords), self.device))
+                    for k, v in tree.items()}
+
+        self.params = shard(params, specs)
+        if cfg.attention_layer_ids() and \
+                serving_cache_specs(cfg, mesh)["k_pool"][3] == "model":
+            self._kv_heads = cfg.num_kv_heads // axis_size(mesh, "model")
+        self.tp = TensorParallel(
+            model_group=mesh.get_group("model"), model_rank=coords["model"],
+            model_n=axis_size(mesh, "model"),
+            data_group=mesh.get_group("data"), data_rank=coords["data"],
+            data_n=axis_size(mesh, "data"),
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            vocab_rows=params["embed"].shape[0],
+            stage_host=(dist.get_backend() != "nccl"
+                        and self.device.type == "cuda"))
+        # the clock and the agreement check go over the default group,
+        # whose NCCL backend takes tensors on the card only
+        self._world_device = (self.device if dist.get_backend() == "nccl"
+                              else torch.device("cpu"))
+
+    def agreed_clock(self, now_rel: float) -> float:
+        """The scheduler's reading of its clock, ``now_rel`` seconds since
+        its run began. On a mesh every rank acts on rank 0's reading, so
+        that every rank's scheduler releases arrivals, projects SLOs and
+        cancels at deadlines on the same ticks; the ranks' own clocks
+        differ."""
+        if self.mesh is None or dist.get_world_size() == 1:
+            return now_rel
+        t = torch.tensor([now_rel], dtype=torch.float64,
+                         device=self._world_device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
+
+    def check_ranks_agree(self, results: Sequence["RequestResult"]) -> None:
+        """On a mesh, gather a digest of each rank's serve (per trace: its
+        tokens, step scores, confidences, status and prefills; per
+        request: its status, answer, prunes and preemptions) and raise
+        ``RuntimeError`` if any two ranks differ: a rank that decided
+        otherwise would deadlock in a later collective, or serve other
+        batches."""
+        if self.mesh is None or dist.get_world_size() == 1:
+            return
+        mine = torch.tensor([results_digest(results)], dtype=torch.int64,
+                            device=self._world_device)
+        every = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        digests = [int(t.item()) for t in every]
+        if len(set(digests)) > 1:
+            raise RuntimeError(
+                f"the mesh's ranks disagree on the serve: digests "
+                f"{digests} by rank; every rank must admit, prune, preempt "
+                f"and sample alike")
+
+    # ------------------------------------------------------------------
     # device steps
     # ------------------------------------------------------------------
     def _build_steps(self):
@@ -322,9 +438,11 @@ class Engine:
         eos_id = self.tok.eos_id
         step_id = self.tok.step_id
         use_kernel = self.use_kernel
+        tp = self.tp
         # Fused step scorer: on the kernel path the scorer MLP runs as the
-        # step_score kernel inside the decode burst.
-        self.fused_scorer = bool(has_scorer and use_kernel)
+        # step_score kernel inside the decode burst. A mesh engine scores
+        # densely, as the JAX engine does.
+        self.fused_scorer = bool(has_scorer and use_kernel and tp is None)
 
         def mask_vocab(logits):
             logits[..., V:] = -torch.inf
@@ -342,6 +460,13 @@ class Engine:
                 elif self.fused_scorer:
                     def score_fn(h):
                         return kops.step_score_params(h, scorer_params)
+                elif tp is not None:
+                    # the whole batch's hidden states, scored on every
+                    # rank: the scorer's [F, 1] product rounds by how
+                    # many rows it takes, so scoring a rank's lanes alone
+                    # would part from the single-device scores
+                    def score_fn(h):
+                        return scorer_score(scorer_params, tp.gather_data(h))
                 else:
                     def score_fn(h):
                         return scorer_score(scorer_params, h)
@@ -364,7 +489,7 @@ class Engine:
                     sample_fn=sample_fn, eos_id=eos_id, step_id=step_id,
                     score_fn=score_fn,
                     scratch_block=self.block_mgr.scratch_block,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, tp=tp)
                 return (out["tokens"], out["confidences"], out["scores"],
                         out["token_valid"], out["score_valid"],
                         out["final_tokens"], out["positions"], out["cache"],
@@ -377,11 +502,12 @@ class Engine:
         # one memory pool for this build's decode graphs
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda"
-                            and not self._eager_decode else None)
+                            and not self._eager_decode and tp is None
+                            else None)
 
         @torch.no_grad()
         def prefill(params, tokens):
-            out = forward_full(params, cfg, tokens, return_kv=True)
+            out = forward_full(params, cfg, tokens, return_kv=True, tp=tp)
             return mask_vocab(out["logits"]), out["kvs"]
 
         self._prefill = prefill
@@ -399,7 +525,7 @@ class Engine:
                 out = prefill_chunk_step(
                     params, cfg, tokens, positions, valid,
                     {**cache, "block_tables": block_tables},
-                    window_len=ecfg.capacity, use_kernel=use_kernel)
+                    window_len=ecfg.capacity, use_kernel=use_kernel, tp=tp)
                 new_cache = out["cache"]
                 new_cache.pop("block_tables", None)
                 return mask_vocab(out["logits"]), new_cache
@@ -415,12 +541,13 @@ class Engine:
     def decode_fn(self, horizon: int, lanewise: bool = False) -> Callable:
         """The fused decode step for ``(horizon, lanewise)``: its
         :class:`DecodeGraph` (captured at its first call on a CUDA
-        engine), or the function itself under ``_eager_decode``."""
+        engine), or the function itself under ``_eager_decode`` and on a
+        mesh, whose horizon runs eagerly."""
         key = (horizon, lanewise)
         fn = self._decode_fns.get(key)
         if fn is None:
             fn = self._make_decode(horizon, lanewise)
-            if not self._eager_decode:
+            if not self._eager_decode and self.tp is None:
                 fn = DecodeGraph(fn, self.device, self._graph_pool,
                                  self.block_mgr.scratch_block)
             self._decode_fns[key] = fn
@@ -523,7 +650,7 @@ class Engine:
             self._pool = init_decode_cache(
                 self.cfg, self.ecfg.max_batch, self.ecfg.capacity,
                 num_blocks=self.ecfg.num_blocks, kv_dtype=self.ecfg.kv_dtype,
-                device=self.device)
+                device=self.device, kv_heads=self._kv_heads)
             self._pool.pop("block_tables", None)
             return self._pool
         for key, t in self._pool.items():
@@ -650,6 +777,7 @@ class Engine:
             if st.result is None:  # defensive: finalize stragglers
                 st.result = self._finalize(st, t_start, t_end, peak_blocks)
             results.append(st.result)
+        self.check_ranks_agree(results)
         return results
 
     def _finalize(self, st: ReqState, t_start: float, t_end: float,
@@ -704,3 +832,69 @@ def _tree_to(tree: dict, device: torch.device) -> dict:
     return {k: (_tree_to(v, device) if isinstance(v, dict)
                 else v.to(device))
             for k, v in tree.items()}
+
+
+def _owned(whole: torch.Tensor, piece: torch.Tensor,
+           device: torch.device) -> torch.Tensor:
+    """A rank's ``piece`` of ``whole`` on ``device``; a proper slice in
+    storage of its own, so that it does not keep the whole alive."""
+    out = piece.to(device)
+    if piece.shape != whole.shape and out.data_ptr() == piece.data_ptr():
+        out = out.clone()
+    return out
+
+
+def _check_mesh(mesh, cfg: ModelConfig, ecfg: EngineConfig) -> None:
+    """The JAX engine's mesh gates (the archs whose layout keeps the serve
+    exact, the axes, an even split of the decode lanes), after a check
+    that the ranks have a process group."""
+    if cfg.arch_type in ("ssm", "hybrid") or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "mesh serving covers the dense paged-attention archs; "
+            "recurrent/enc-dec state would need a data-sharded "
+            "slot-state story first")
+    if cfg.use_mla or cfg.uses_moe:
+        raise NotImplementedError(
+            "mesh serving's exactness layout does not cover MLA/MoE yet; "
+            "run these archs on a single device")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh engine needs an initialized torch.distributed default "
+            "process group (torchrun, or init_process_group)")
+    for axis in ("data", "model"):
+        if axis not in axis_names(mesh):
+            raise ValueError(f"serving mesh needs a {axis!r} axis, "
+                             f"got {axis_names(mesh)}")
+    data_n = axis_size(mesh, "data")
+    if ecfg.max_batch % data_n != 0:
+        raise ValueError(
+            f"max_batch={ecfg.max_batch} must be a multiple of the mesh's "
+            f"data axis ({data_n}) so decode lanes shard evenly")
+
+
+def _rank_device(device) -> torch.device:
+    """A rank's device: the caller's, else ``cuda:<LOCAL_RANK>``, which
+    must exist."""
+    if device is not None:
+        return torch.device(device)
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = resolve_device(f"cuda:{local}")
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"rank device cuda:{local} is missing: this machine has "
+            f"{torch.cuda.device_count()} CUDA device(s)")
+    return dev
+
+
+def results_digest(results: Sequence[RequestResult]) -> int:
+    """A 63-bit digest of a serve's decisions and outputs (floats by their
+    exact ``repr``)."""
+    h = hashlib.sha256()
+    for r in results:
+        h.update(repr((r.request_id, r.status, r.answer, r.num_pruned,
+                       r.num_preemptions, r.total_tokens)).encode())
+        for t in r.traces:
+            h.update(repr((t.trace_id, str(t.status), t.output_tokens,
+                           t.step_scores, t.token_confidences,
+                           t.prefill_count)).encode())
+    return int.from_bytes(h.digest()[:8], "little") >> 1

@@ -396,7 +396,7 @@ class TenantScheduler(SchedulingPolicy):
         slo: Optional[SLO] = getattr(st.req, "slo", None)
         if slo is None or slo.ttft_s is None:
             return n
-        now_rel = time.perf_counter() - core.t_start
+        now_rel = core._now_rel()
         waited = max(now_rel - st.req.arrival_time, 0.0)
         rate = core.token_rate()
         backlog = core.prefill_backlog_tokens() + len(st.req.prompt_tokens)
@@ -701,8 +701,7 @@ class SchedulerCore:
         SLO projections never act on a cold estimate."""
         if self._tokens_done < 1:
             return 0.0
-        elapsed = time.perf_counter() - self.t_start
-        return self._tokens_done / max(elapsed, 1e-6)
+        return self._tokens_done / max(self._now_rel(), 1e-6)
 
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens arrived but not yet prefilled (SLO projection
@@ -725,7 +724,12 @@ class SchedulerCore:
         self.sched.on_event(event)
 
     def _now_rel(self) -> float:
-        return time.perf_counter() - self.t_start
+        """Seconds since the run began: the one clock reading that
+        scheduling decisions act on (arrivals, deadlines, SLO
+        projections). A mesh engine agrees it across its ranks
+        (``Engine.agreed_clock``); timestamps kept only for metrics read
+        ``time.perf_counter`` directly."""
+        return self.eng.agreed_clock(time.perf_counter() - self.t_start)
 
     def has_work(self) -> bool:
         return bool(self.pending or self.waiting or self.running

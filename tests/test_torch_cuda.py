@@ -1226,3 +1226,39 @@ def test_serve_decode_step_on_card_matches_cpu(gen, arch):
                                        **TOL[torch.float32])
         assert torch.equal(out["cuda"]["next_token"].cpu(),
                            out["cpu"]["next_token"])
+
+
+def test_mesh_engine_on_card_matches_single_device(gen, tmp_path):
+    """Two gloo ranks sharing the card as a (1, 2) mesh (each holds half
+    the heads; gloo stages its gathers through the host), f32 smoke
+    config, greedy, chunked, through the kernels: the single-device CUDA
+    engine's tokens, statuses and prunes, step scores within 1e-4 (cuBLAS
+    may pick another algorithm for a rank's narrower products), and K1a
+    and K1b launched on both ranks."""
+    import torch_mesh_ranks as R
+    ops.build_kernels()            # once, before the ranks load them
+    cfg = serving_config()
+    g = torch.Generator().manual_seed(0)
+    params = T.map_tree(lambda x: x.float(), init_params(cfg, g))
+    scorer = init_scorer(g, cfg.d_model)
+    torch.save({"params": params, "scorer": scorer}, tmp_path / "params.pt")
+    tok = get_tokenizer()
+    want = R.run_scenario("kernel_greedy", params, cfg, scorer, tok,
+                          device="cuda")
+    ranks = R.spawn(2, str(tmp_path / "mesh"), "mesh_scenarios",
+                    str(tmp_path / "params.pt"),
+                    {"1x2": ((1, 2), ("kernel_greedy",))}, "cuda:0")
+    for out in ranks:
+        got = out["1x2"]["kernel_greedy"]
+        assert got["use_kernel"] is True
+        for wg, ww in zip(got["waves"], want["waves"]):
+            for rg, rw in zip(wg, ww):
+                assert rg["num_pruned"] == rw["num_pruned"]
+                for tg, tw in zip(rg["traces"], rw["traces"]):
+                    assert tg[0] == tw[0] and tg[3] == tw[3]
+                    assert len(tg[1]) == len(tw[1])
+                    assert all(abs(a - b) <= 1e-4
+                               for a, b in zip(tg[1], tw[1]))
+        assert got["launches"]["paged_attention_decode"] > 0
+        assert got["launches"]["paged_attention_prefill"] > 0
+        assert got["launches"]["decode_graph_captures"] == 0

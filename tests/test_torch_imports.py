@@ -46,7 +46,8 @@ def test_port_has_modules():
                  "training/trainer.py", "data/dataset.py",
                  "core/scorer.py", "core/pipeline.py",
                  "launch/steps.py", "launch/train.py", "launch/serve.py",
-                 "launch/artifacts.py"):
+                 "launch/artifacts.py", "launch/mesh.py",
+                 "launch/shardings.py"):
         assert want in names
 
 

@@ -9,8 +9,11 @@ cpu``):
   the JAX launcher's summary lines;
 - the paper's claim under the tight pool of ``--blocks 12``: STEP
   prunes and never waits, SC preempts and waits;
-- ``--mesh`` exits naming ROADMAP A10 before anything loads, and the
-  default device raises without a card.
+- ``--mesh`` on four gloo ranks of the CPU: rank 0 prints the
+  single-device summary, the other ranks print nothing, and a mesh the
+  ranks do not fill exits with the validation message; without a
+  process group ``--mesh`` exits before anything loads, and the default
+  device raises without a card.
 """
 import re
 
@@ -30,6 +33,7 @@ from repro.core.scorer import init_scorer as j_init_scorer  # noqa: E402
 from repro.models.init import init_params as j_init_params  # noqa: E402
 from repro.training import checkpoint as j_ckpt  # noqa: E402
 from repro_torch.launch import artifacts, serve, train  # noqa: E402
+import torch_mesh_ranks as R  # noqa: E402
 
 SUMMARY = re.compile(r"^\[(\w+)\] acc=\d\.\d\d tokens=\d+ latency=\d+\.\d\ds "
                      r"wait=\d+\.\d\ds pruned=\d+ preempt=\d+$", re.M)
@@ -137,14 +141,52 @@ def test_tight_pool_step_prunes_sc_preempts(run):
 
 
 @pytest.mark.parametrize("spec", ["2,2", "auto"])
-def test_mesh_exits_naming_a10_before_loading(spec, tmp_path, monkeypatch):
+def test_mesh_without_a_process_group_exits_before_loading(spec, tmp_path,
+                                                          monkeypatch):
     monkeypatch.setattr(artifacts, "ART_DIR", str(tmp_path / "none"))
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node"):
         serve.main(["--mesh", spec, "--device", "cpu"])
     with pytest.raises(SystemExit, match="DATA,MODEL"):
         serve.main(["--mesh", "2x2", "--device", "cpu"])
     assert not (tmp_path / "none").exists()
     assert serve.parse_mesh(None) is None and serve.parse_mesh("none") is None
+
+
+@pytest.fixture(scope="module")
+def mesh_cli(art_dir, tmp_path_factory):
+    """Each rank's output of the serve CLI on four gloo ranks: a 2x2 mesh
+    serve, and a 3x2 mesh the four ranks cannot fill."""
+    path = tmp_path_factory.mktemp("mesh_cli")
+    argv = ["--method", "step", *BASE, "--mesh", "2,2"]
+    ranks = R.spawn(4, str(path), "serve_cli", art_dir,
+                    [argv, ["--mesh", "3,2", "--device", "cpu"]])
+    return argv, [r[0] for r in ranks], [r[1] for r in ranks]
+
+
+def _fields(line):
+    """The summary line's fields that do not depend on time."""
+    return {k: v for k, v in re.findall(r"(\w+)=(\S+)", line)
+            if k not in ("latency", "wait")}
+
+
+def test_mesh_cli_rank0_prints_the_single_device_summary(run, mesh_cli):
+    argv, ok, _ = mesh_cli
+    _, single = run(*argv[:-2])
+    line = SUMMARY.search(single).group(0)
+    out = ok[0]["stdout"]
+    assert ok[0]["exit"] is None
+    assert _fields(SUMMARY.search(out).group(0)) == _fields(line)
+    assert len(re.findall(r"^  \[step\] q\d: ans=", out, re.M)) == 2
+    for rank in ok[1:]:
+        assert rank["stdout"] == "" and rank["exit"] is None
+
+
+def test_mesh_cli_exits_on_a_mesh_the_ranks_do_not_fill(mesh_cli):
+    for rank in mesh_cli[2]:
+        assert rank["exit"].startswith("--mesh 3,2: mesh axis data=3 does "
+                                       "not divide the 4 available device")
 
 
 def test_default_device_raises_without_a_card(tmp_path, monkeypatch):

@@ -486,8 +486,8 @@ def test_int8_pool_serve_matches_jax(setup):
 
 def test_engine_gates_follow_the_matrix(setup):
     """mixtral gets every serving feature of the dense archs: chunked
-    prefill, the prefix cache and int8/fp8 pools; mesh serving raises
-    (the JAX engine refuses MoE on a mesh; the port has no mesh yet)."""
+    prefill, the prefix cache and int8/fp8 pools; mesh serving raises,
+    as the JAX engine refuses MoE on a mesh."""
     cfg, tp = setup["cfg"], setup["tp"]
     assert tm.supports_chunked_prefill(cfg)
     for kv_dtype in ("int8", "fp8"):

@@ -53,3 +53,28 @@ def prefill_case(seed, B, C, KVH, G, page, bp, starts, nvalid, dt="f32",
     targs = [p[1] for p in jf[:3]] + [torch.from_numpy(i) for i in ints] + \
         [p[1] for p in jf[3:]]
     return jargs, targs
+
+
+def mesh_setup(path, names) -> dict:
+    """For the mesh tests: the JAX package's serving weights and scorer in
+    f32, bridged and saved as ``path``/params.pt for the ranks, and the
+    scenarios ``names`` of tests/torch_mesh_ranks.py through the port's
+    single-device engine on them."""
+    import jax
+    import torch_mesh_ranks as R
+    from repro.configs.registry import serving_config
+    from repro.core.scorer import init_scorer
+    from repro.models.init import init_params
+    from repro_torch.models.bridge import params_from_numpy, scorer_from_numpy
+    jcfg = serving_config()
+    jp = jax.tree.map(lambda x: x.astype(jnp.float32),
+                      init_params(jcfg, jax.random.PRNGKey(0)))
+    js = init_scorer(jax.random.PRNGKey(1), jcfg.d_model)
+    torch.save({"params": params_from_numpy(jax.device_get(jp), device="cpu"),
+                "scorer": scorer_from_numpy(jax.device_get(js), device="cpu")},
+               path / "params.pt")
+    cfg, params, scorer, tok = R.setup(str(path / "params.pt"))
+    single = {name: R.run_scenario(name, params, cfg, scorer, tok)
+              for name in names}
+    return {"path": path, "jp": jp, "js": js, "jcfg": jcfg, "tok": tok,
+            "single": single}
