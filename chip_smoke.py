@@ -68,6 +68,11 @@ Phases, each printing one JSON line:
                 in contiguous caches laid out by ``kv_cache_specs``
                 (decode_32k cut to 16 x 4096), 32 decode steps held to
                 the teacher-forced forward;
+     roofline_decode — ``launch.cost_analysis.op_cost`` over one
+                ``make_decode_step`` call at launch_steps' shape (no
+                mesh): its counted flops and bytes and the roofline terms
+                they give at the H100's datasheet peaks, beside the same
+                call's device ms (torch.profiler) and wall ms;
      launch_train — qwen3's params freed, ``launch.train.main`` at full
                 width (B 8 in 4 microbatches, remat): losses, seconds per
                 step, peak memory;
@@ -138,6 +143,15 @@ Phases, each printing one JSON line:
                 prompt and 64 teacher-forced ``decode_step`` calls through
                 K1a (24 per step) against the same calls dense.
 
+Beside all of these, from the start, a child process runs the
+production dry run on the host's CPU (``dryrun``: ``python -m
+repro_torch.launch.dryrun --arch qwen3-4b-thinking --both-meshes``, one
+thread, on a core of its own that the script's threads leave to it):
+every shape over the 256- and 512-rank meshes of a fake process
+group. Its records are read at the end: each must be ``ok``; their
+status, dominant roofline term, per-device GiB and trace seconds are
+printed (counts at datasheet peaks, not measurements).
+
 The kernels phase also checks K1a/K1c at batched_mixtral's decode (4
 lanes over 288-page rows: each lane's pages in 9 parts, merged), K1b/K1c
 under mixtral's window at its 512-token chunk, K3 at S = 8192 under the
@@ -159,6 +173,7 @@ exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -173,6 +188,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # one bf16 ulp of the output
@@ -2737,6 +2753,11 @@ LAUNCH_B, LAUNCH_CAPACITY, LAUNCH_PROMPT, LAUNCH_STEPS = 16, 4096, 2048, 32
 # default 4000 took 102-150 s on the card's host (host-bound small
 # launches), more than the launcher phases' share of the time limit
 LAUNCH_TRAIN_STEPS = 2000
+ROOFLINE_REPS = 5
+# the dry run takes about 2.5 minutes of one CPU core; the card's phases
+# take longer, so it is waited for only past them, and only until this
+# many seconds after the script's start
+DRYRUN_DEADLINE_S = 1000
 # the serving launcher's runs: the paper's memory-pressure pair (16
 # traces over 11 free blocks of 16 slots), online serving with chunked
 # prefill, and an int8 pool
@@ -2953,6 +2974,153 @@ def phase_launch_steps(rt, ops, cfg, params):
            "near_ties": near_ties}
     emit("launch_steps", **out)
     return out
+
+
+def phase_roofline_decode(rt, cfg, params):
+    """One ``make_decode_step`` call at launch_steps' shape (B
+    ``LAUNCH_B``, a ``LAUNCH_CAPACITY``-slot contiguous cache, at position
+    ``LAUNCH_PROMPT``; no mesh), counted by ``launch.cost_analysis``: its
+    flops, the bytes of its eager ops and the roofline terms at the
+    H100's datasheet peaks (counts, not measurements), beside the same
+    call's device ms (torch.profiler, L2 warm) and wall ms (synchronised,
+    mean of ``ROOFLINE_REPS``). Their gap says how much of the step the
+    host takes."""
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import steps
+    Reg = rt["registry"]
+    B, cap = LAUNCH_B, LAUNCH_CAPACITY
+    specs = Reg.kv_cache_specs(cfg, "decode_32k")
+    cache = {k: torch.zeros((s.shape[0], B, cap, *s.shape[3:]),
+                            dtype=s.dtype, device="cuda")
+             for k, s in specs.items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.full((B,), LAUNCH_PROMPT, dtype=torch.int32,
+                                     device="cuda")}
+    decode = steps.make_decode_step(cfg)
+
+    def call():
+        return decode(params, batch, cache)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cost = ca.op_cost(call)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    terms = ca.roofline_terms(cost["flops"], cost["bytes"],
+                              cost["collective_bytes"])
+    t0 = time.perf_counter()
+    for _ in range(ROOFLINE_REPS):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / ROOFLINE_REPS * 1e3
+    split = kernel_breakdown(call)
+    device_ms = split["device_ms"] if isinstance(split, dict) else None
+    weight_bytes = 2 * rt["init"].count_params(params)
+    kv_slot = 2 * cfg.num_kv_heads * cfg.head_dim * 2 * cfg.num_layers
+    bound = (weight_bytes + B * (LAUNCH_PROMPT + 1) * kv_slot) \
+        / HBM_BYTES_PER_S * 1e3
+    check(cost["flops"] > 0 and cost["bytes"] > 0,
+          "roofline_decode: nothing counted")
+    out = {"shape": f"B={B} capacity={cap} position {LAUNCH_PROMPT}, bf16",
+           "counted": {"flops": cost["flops"], "bytes": cost["bytes"],
+                       "ops": cost["ops"],
+                       "peak_live_bytes": cost["peak_live_bytes"],
+                       "count_s": count_s},
+           "roofline_ms": {"compute": terms["t_compute_s"] * 1e3,
+                           "memory": terms["t_memory_s"] * 1e3,
+                           "dominant": terms["dominant"]},
+           "bound_ms": bound, "device_ms": device_ms, "wall_ms": wall_ms,
+           "host_share": (1 - device_ms / wall_ms) if device_ms else None,
+           "breakdown": split}
+    del cache
+    emit("roofline_decode", **out)
+    return out
+
+
+DRYRUN_RECORDS = [(shape, mesh) for mesh in ("pod16x16", "pod2x16x16")
+                  for shape in ("train_4k", "prefill_32k", "decode_32k",
+                                "long_500k")]
+
+
+def dryrun_record(shape, mesh) -> Path:
+    from repro_torch.launch import dryrun
+    return Path(dryrun.OUT_DIR) / f"qwen3-4b-thinking__{shape}__{mesh}.json"
+
+
+def stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_dryrun():
+    """Start the production dry run of qwen3-4b-thinking on both meshes in
+    a child process on the host's CPU (one thread; no card), beside the
+    phases on the card, its earlier records deleted first. Returns the
+    process; it is killed at exit if it still runs."""
+    for shape, mesh in DRYRUN_RECORDS:
+        dryrun_record(shape, mesh).unlink(missing_ok=True)
+    out_dir = dryrun_record(*DRYRUN_RECORDS[0]).parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    with open(out_dir / "dryrun.log", "w") as log:   # DTensor's warnings
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-4b-thinking", "--both-meshes"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=log, text=True)
+    atexit.register(stop, proc)
+    pin_apart(proc)
+    return proc
+
+
+def pin_apart(proc) -> None:
+    """Keep the child off the cores that this process's timed host work
+    runs on: the child gets the last core this process may use, and
+    every thread of this process (and what it starts later: nvcc, the
+    serving ranks) the others."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 2:
+        return
+    os.sched_setaffinity(proc.pid, {cores[-1]})
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), set(cores[:-1]))
+        except OSError:     # a thread that has ended
+            pass
+
+
+def phase_dryrun(proc):
+    """Wait for the dry run (``start_dryrun``; until ``DRYRUN_DEADLINE_S``
+    after the script's start at most) and check its records: each (shape,
+    mesh) of qwen3-4b-thinking is ``ok``. Prints each record's status,
+    dominant term, per-device GiB and trace seconds."""
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(
+            timeout=max(10.0, START + DRYRUN_DEADLINE_S - t0))
+    finally:
+        stop(proc)
+    waited = time.perf_counter() - t0
+    records = []
+    for shape, mesh in DRYRUN_RECORDS:
+        path = dryrun_record(shape, mesh)
+        check(path.exists(), f"dryrun: no record for {shape} {mesh}")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok",
+              f"dryrun {shape} {mesh}: {rec['status']} {rec.get('reason')}")
+        records.append({k: rec.get(k) for k in (
+            "shape", "mesh", "status", "dominant", "per_device_hbm_gib",
+            "trace_s", "hlo_flops_per_dev", "hlo_bytes_per_dev",
+            "collective_bytes_per_dev", "t_compute_s", "t_memory_s",
+            "t_collective_s", "useful_flops_ratio")})
+    check(proc.returncode == 0, f"dryrun: exit code {proc.returncode}")
+    emit("dryrun", records=records, summary=out.strip().splitlines()[-1],
+         waited_s=waited)
+    return records
 
 
 def phase_launch_train(rt):
@@ -3261,6 +3429,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_device()
+    dryrun_proc = start_dryrun()
     phase_build(ops)
     errs = phase_kernels(pa, ss, fa, sd, kvq, smd)
     cfg, params, scorer, n_params, init_s = full_model(rt)
@@ -3281,6 +3450,7 @@ def main() -> int:
     times = phase_times(pa, ss, fa, sd, kvq, smd)
     phase_step(rt, cfg, params)
     phase_launch_steps(rt, ops, cfg, params)
+    phase_roofline_decode(rt, cfg, params)
 
     # the training launcher at full width once qwen3's params are freed
     # (its own params, moments and accumulator take 64 GB), then the
@@ -3358,6 +3528,7 @@ def main() -> int:
     del sparams
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun(dryrun_proc)
 
     # (source, TPU kernel, error key, launches on the main path)
     src = "src/repro_torch/csrc/"

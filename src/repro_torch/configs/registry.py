@@ -39,6 +39,8 @@ _ARCH_MODULES: Dict[str, str] = {
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
+# every arch but the paper's own model (the dry run's --all)
+ASSIGNED_ARCHS = tuple(k for k in _ARCH_MODULES if k != "qwen3-4b-thinking")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -61,6 +63,7 @@ def get_shape(name: str) -> ShapeSpec:
 
 __all__ = [
     "ALL_ARCHS",
+    "ASSIGNED_ARCHS",
     "get_config",
     "serving_config",
     "get_shape",

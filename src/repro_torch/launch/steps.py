@@ -5,6 +5,12 @@ and the trainer run, over explicit batches and caches.
 A step updates its tensors in place where the JAX package returned new
 ones from donated buffers: the train step the params and the AdamW
 moments, the decode step its contiguous cache.
+
+The sharding hooks ``act_spec`` and ``kv_specs`` (placements; see
+``models.model.forward_full``) are passed through to the model, as the
+JAX package's steps pass theirs: the production dry run
+(``launch.dryrun``) runs these steps over DTensors with them. On plain
+tensors they change nothing.
 """
 from __future__ import annotations
 
@@ -15,15 +21,31 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import forward_full, lm_loss, serve_decode_step
 from repro_torch.training import tree as T
-from repro_torch.training.optimizer import AdamW
+from repro_torch.training.optimizer import AdamW, local_shard
 
 FRONTEND_KEYS = ("modality_embeds", "encoder_embeds")
+
+
+def _rows(x: torch.Tensor, i: int, k: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``k`` of a batch ``x``: its i-th block of rows.
+    A DTensor batch takes the i-th block of each rank's own rows, as data
+    parallelism splits it (the blocks are other rows than the plain
+    path's, of the same size, so the mean loss and summed gradients are
+    the same up to rounding)."""
+    rows = local_shard(x)
+    n = rows.shape[0]
+    piece = rows[i * n // k:(i + 1) * n // k]
+    if rows is x:
+        return piece
+    return type(x).from_local(piece, x.device_mesh, x.placements,
+                              run_check=False)
 
 
 def make_train_step(cfg: ModelConfig, lr: float = 1e-4,
                     microbatches: int = 1,
                     moment_dtype: str = "float32",
-                    accum_dtype: str = "float32"
+                    accum_dtype: str = "float32",
+                    act_spec=None, kv_specs=None
                     ) -> Tuple[Callable, AdamW]:
     """Full training step: forward (each layer checkpointed) + backward +
     one AdamW update. Returns ``(train_step, opt)`` with
@@ -44,7 +66,7 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4,
 
     def loss_and_grads(params, leaves, batch):
         loss = lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                       remat=True,
+                       remat=True, act_spec=act_spec, kv_specs=kv_specs,
                        **{k: batch[k] for k in FRONTEND_KEYS if k in batch})
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
@@ -57,9 +79,9 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4,
         acc = [torch.zeros_like(p, dtype=adt) for p in leaves]
         losses = []
         for i in range(k):
-            rows = slice(i * B // k, (i + 1) * B // k)
             loss, grads = loss_and_grads(
-                params, leaves, {key: v[rows] for key, v in batch.items()})
+                params, leaves,
+                {key: _rows(v, i, k) for key, v in batch.items()})
             for a, g in zip(acc, grads):
                 if a.dtype == torch.float32:
                     a.add_(g)   # the same f32 sum, without temporaries
@@ -91,7 +113,8 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4,
     return train_step, opt
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, act_spec=None,
+                      kv_specs=None) -> Callable:
     """Prefill: the full forward over the prompt, returning the last
     position's logits (to sample the first token) and the K/V or end
     state that seeds decode (``models.model.write_contiguous_kv``)."""
@@ -99,6 +122,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
         out = forward_full(params, cfg, batch["tokens"], return_kv=True,
+                           act_spec=act_spec, kv_specs=kv_specs,
                            **{k: batch[k] for k in FRONTEND_KEYS
                               if k in batch})
         return {"next_logits": out["logits"][:, -1], "kvs": out["kvs"]}
@@ -106,7 +130,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, kv_specs=None) -> Callable:
     """One decode step over the contiguous cache (updated in place):
     returns the greedy next token [B] int32, the STEP scorer's hidden
     state [B, D], the logits [B, Vp] it was drawn from, and the cache."""
@@ -114,7 +138,8 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def decode_fn(params, batch, cache):
         out = serve_decode_step(params, cfg, batch["tokens"],
-                                batch["positions"], cache)
+                                batch["positions"], cache,
+                                kv_specs=kv_specs)
         next_tok = out["logits"].argmax(dim=-1).to(torch.int32)
         return {"next_token": next_tok, "hidden": out["hidden"],
                 "logits": out["logits"], "cache": out["cache"]}

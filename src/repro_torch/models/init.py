@@ -90,6 +90,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params
 
 
+def init_param_shapes(cfg: ModelConfig) -> dict:
+    """The tree of :func:`init_params` as ``meta`` tensors: the same
+    names, shapes and dtypes, and no storage (the counterpart of the JAX
+    package's ``jax.eval_shape(init_params)``). The draws run under a
+    ``FakeTensorMode``, which allocates nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator("cpu"))
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    return meta(fake)
+
+
 def _dense_layers(cfg: ModelConfig, dense, ones, stack: tuple,
                   cross: bool = False) -> dict:
     """Decoder layers stacked over ``stack`` (``(L,)``, or ``()`` for the

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -113,6 +114,21 @@ def _heads(tp: Optional[TensorParallel], y: torch.Tensor, n: int,
     if tp is not None and not tp.heads_aligned:
         y = tp.full_cols(y, n * hd)
     return y.reshape(*y.shape[:-1], -1, hd)
+
+
+def constrain(x, placements):
+    """The sharding hook at the JAX package's
+    ``with_sharding_constraint`` points: a DTensor ``x`` redistributed to
+    ``placements`` (one per dim of its mesh; itself where it has them
+    already), and ``x`` itself when it is a plain tensor or
+    ``placements`` is None. So a path of plain tensors is unchanged bit
+    for bit. A caller mixing DTensors with the plain tensors that the
+    layers build (rope tables, masks, positions) runs under
+    ``torch.distributed.tensor.experimental.implicit_replication``."""
+    if placements is None or not isinstance(x, DTensor) \
+            or tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +230,13 @@ def moe_queue(sel: torch.Tensor, E: int, capacity: int):
 
 
 def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
-                w: torch.Tensor, E: int, capacity: int) -> torch.Tensor:
+                w: torch.Tensor, E: int, capacity: int,
+                ex_in_spec=None) -> torch.Tensor:
     """Dispatch, expert SwiGLU and combine for groups ``xg [G, gs, D]``
     with their choices ``sel``/``w [G, gs, K]`` (:func:`moe_queue` drops
-    the pairs past ``capacity``). Returns [G, gs, D]."""
+    the pairs past ``capacity``). ``ex_in_spec``: the placements of the
+    dispatched inputs [G, E, C, D] (:func:`constrain`). Returns
+    [G, gs, D]."""
     G, gs, K = sel.shape
     D = xg.shape[-1]
     sel_oh, pos, keep = moe_queue(sel, E, capacity)
@@ -228,8 +247,8 @@ def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
                            disp * w.to(xg.dtype)[..., None], pos_oh)
     # [G, E*C, gs] @ [G, gs, D]: each slot holds its token's x (or zeros)
     ex_in = dispatch.reshape(G, gs, E * capacity).transpose(1, 2) @ xg
-    xe = ex_in.reshape(G, E, capacity, D).transpose(0, 1) \
-        .reshape(E, G * capacity, D)
+    ex_in = constrain(ex_in.reshape(G, E, capacity, D), ex_in_spec)
+    xe = ex_in.transpose(0, 1).reshape(E, G * capacity, D)
     act = F.silu((xe @ pe["w_gate"]).float()).to(xg.dtype) \
         * (xe @ pe["w_up"])
     ex_out = (act @ pe["w_down"]).reshape(E, G, capacity, D).transpose(0, 1)
@@ -238,7 +257,9 @@ def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
 
 
 def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              capacity_factor: Optional[float] = None):
+              capacity_factor: Optional[float] = None,
+              expert_weight_spec: Optional[dict] = None,
+              ex_in_spec=None):
     """Top-k MoE with optional shared experts and group-wise capacity
     dispatch (GShard/Switch semantics), as ``repro/models/layers.py``.
 
@@ -250,13 +271,23 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     max(1, int(cf * gs * K / E))`` of a group's (token, k) pairs in
     order: a dropped pair adds nothing (a token that loses both gets no
     MoE output). Every shape is static, so the layer captures in a CUDA
-    graph. Returns (out [B, S, D], the Switch load-balancing aux loss)."""
+    graph. Returns (out [B, S, D], the Switch load-balancing aux loss).
+
+    ``expert_weight_spec`` ({w_gate, w_up, w_down} -> placements) lays
+    the expert weights out before the group loop (a weight sharded for
+    FSDP is then gathered once per layer, not per chunk of groups);
+    ``ex_in_spec`` lays out the dispatched inputs (see
+    :func:`constrain`)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     xt = x.reshape(T, D)
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
+    experts = p["experts"]
+    if expert_weight_spec is not None:
+        experts = {k: constrain(v, expert_weight_spec[k])
+                   for k, v in experts.items()}
 
     gates = torch.softmax((xt @ p["router"]).float(), dim=-1)
     weights, sel = _top_k(gates, K)                          # [T, K]
@@ -271,18 +302,20 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     capacity = max(1, int(capacity_factor * gs * K / E))
     args = (xt.reshape(G, gs, D), sel.reshape(G, gs, K),
             weights.reshape(G, gs, K))
+    # the hook only where given: ``_moe_groups``' positional call stays
+    extra = {} if ex_in_spec is None else {"ex_in_spec": ex_in_spec}
     chunk_groups = max(1, (MOE_CHUNK_TOKENS + gs - 1) // gs)
     if G > chunk_groups:
         while G % chunk_groups:
             chunk_groups -= 1
         # recomputed in the backward pass, as the JAX package's chunk scan
         out = torch.cat([
-            checkpoint(_moe_groups, p["experts"],
+            checkpoint(_moe_groups, experts,
                        *(a[i:i + chunk_groups] for a in args), E, capacity,
-                       use_reentrant=False)
+                       use_reentrant=False, **extra)
             for i in range(0, G, chunk_groups)])
     else:
-        out = _moe_groups(p["experts"], *args, E, capacity)
+        out = _moe_groups(experts, *args, E, capacity, **extra)
     out = out.reshape(T, D)
     if cfg.num_shared_experts:
         out = out + swiglu(p["shared"], xt)
@@ -310,10 +343,12 @@ def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sequence {S} not a multiple of chunk {chunk}")
     dev = q.device
     q_pos = torch.arange(S, device=dev)
-    m = torch.full((B, H, S, 1), -1e30, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, S, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, S, v.shape[-1]), dtype=torch.float32,
-                      device=dev)
+    # the running max, sum and output, laid out as q and v (a DTensor
+    # q's shards: see ``constrain``)
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    m = torch.full_like(q[..., :1], -1e30, **f32)
+    l = torch.zeros_like(q[..., :1], **f32)
+    acc = l.expand(B, H, S, v.shape[-1]).contiguous()
     for i in range(S // chunk):
         k_blk = k[:, :, i * chunk:(i + 1) * chunk]
         v_blk = v[:, :, i * chunk:(i + 1) * chunk]

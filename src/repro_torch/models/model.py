@@ -122,12 +122,27 @@ def _logits(params, cfg, h, tp: Optional[L.TensorParallel] = None):
 
 
 def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor,
-         tp: Optional[L.TensorParallel] = None):
+         tp: Optional[L.TensorParallel] = None,
+         kv_specs: Optional[dict] = None, ex_in: bool = False):
     """A decoder layer's feed-forward: (the MoE's output and aux loss), or
-    (the SwiGLU's output, None)."""
+    (the SwiGLU's output, None). An MoE takes ``kv_specs["moe_experts"]``
+    for its expert weights and, with ``ex_in`` (decode),
+    ``kv_specs["moe_ex_in"]`` for its dispatched inputs."""
     if cfg.uses_moe:
-        return L.moe_layer(lp["moe"], cfg, x)
+        specs = kv_specs or {}
+        return L.moe_layer(lp["moe"], cfg, x,
+                           expert_weight_spec=specs.get("moe_experts"),
+                           ex_in_spec=specs.get("moe_ex_in") if ex_in
+                           else None)
     return L.swiglu(lp["mlp"], x, tp), None
+
+
+def _kv_hook(kv_specs: Optional[dict], key: str, x):
+    """``kv_specs[key]`` (placements) on a layer's emitted K/V or state:
+    the JAX package's ``_wsc_kv``; see ``layers.constrain``."""
+    if kv_specs is None or x is None:
+        return x
+    return L.constrain(x, kv_specs.get(key))
 
 
 def _body(remat: bool, fn, *args):
@@ -148,7 +163,8 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     modality_embeds: Optional[torch.Tensor] = None,
                     encoder_embeds: Optional[torch.Tensor] = None,
                     remat: bool = False,
-                    tp: Optional[L.TensorParallel] = None):
+                    tp: Optional[L.TensorParallel] = None,
+                    act_spec=None, kv_specs: Optional[dict] = None):
     """The layer stack of :func:`forward_full`: (final hidden [B, S, D],
     kvs or None, the summed aux loss of the MoE layers: f32, 0 without
     them)."""
@@ -158,9 +174,10 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if encoder_embeds is None:
             raise ValueError("an encoder-decoder's forward needs "
                              "encoder_embeds [B, T, D]")
-        enc_out = encode(params, cfg, encoder_embeds, remat=remat)
+        enc_out = encode(params, cfg, encoder_embeds, remat=remat,
+                         act_spec=act_spec)
     B, S = tokens.shape
-    h = _embed(params, cfg, tokens, tp)
+    h = L.constrain(_embed(params, cfg, tokens, tp), act_spec)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.modality == "vision" and modality_embeds is not None:
         # the stub frontend's embeddings replace the first n positions'
@@ -168,17 +185,19 @@ def _forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = torch.cat([modality_embeds.to(h.dtype), h[:, n:]], dim=1)
     if cfg.arch_type == "ssm":
         h, kvs = _ssm_stack_full(params["layers"], cfg.num_layers, cfg, h,
-                                 return_kv, use_kernel, remat)
+                                 return_kv, use_kernel, remat, act_spec,
+                                 kv_specs)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if cfg.arch_type == "hybrid":
         h, kvs = _hybrid_stack_full(params, cfg, h, positions, return_kv,
-                                    use_kernel, remat)
+                                    use_kernel, remat, act_spec, kv_specs)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), kvs, aux
     kvs = []
     for l in range(cfg.num_layers):
         h, kv, aux_l = _body(remat, _attn_block_full, _layer(params, l), cfg,
-                             h, positions, return_kv, use_kernel, enc_out, tp)
+                             h, positions, return_kv, use_kernel, enc_out, tp,
+                             act_spec, kv_specs)
         if aux_l is not None:
             aux = aux + aux_l
         kvs.append(kv)
@@ -195,13 +214,15 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, return_kv: bool,
                      use_kernel: bool,
                      enc_out: Optional[torch.Tensor] = None,
-                     tp: Optional[L.TensorParallel] = None):
+                     tp: Optional[L.TensorParallel] = None,
+                     act_spec=None, kv_specs: Optional[dict] = None):
     """One decoder layer (``ln1`` -> GQA or MLA -> residual, with
     ``enc_out`` ``ln_cross`` -> cross-attention -> residual, ``ln2`` ->
     SwiGLU or MoE -> residual) over a full sequence: (h, (k, v), MLA's
     latent entries [B, S, kv_lora + rope] or None, the MoE's aux loss or
     None). MLA has no kernel path: ``use_kernel`` leaves it dense, as in
-    the JAX package."""
+    the JAX package. The sharding hooks (:func:`forward_full`) lay out
+    the emitted K/V and the layer's output."""
     a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         res = L.mla_attention_full(lp["attn"], cfg, a_in, positions,
@@ -212,58 +233,71 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                                    return_kv=return_kv,
                                    use_kernel=use_kernel, tp=tp)
     a, kv = res if return_kv else (res, None)
+    if cfg.use_mla:
+        kv = _kv_hook(kv_specs, "mla", kv)
+    elif kv is not None:
+        kv = (_kv_hook(kv_specs, "kv", kv[0]), _kv_hook(kv_specs, "kv", kv[1]))
     h = h + a
     if enc_out is not None:
         h = h + L.cross_attention(
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             *L.cross_kv(lp["cross"], cfg, enc_out))
-    m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
-    return h + m, kv, aux
+    m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp,
+                  kv_specs)
+    return L.constrain(h + m, act_spec), kv, aux
 
 
 def encode(params: dict, cfg: ModelConfig, encoder_embeds: torch.Tensor,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, act_spec=None) -> torch.Tensor:
     """The encoder of an encoder-decoder over the stub frontend's
     embeddings [B, T, D]: ``num_encoder_layers`` blocks of GQA attention
     and SwiGLU, then ``encoder_norm``. Its attention is CAUSAL (rope at
     positions 0..T-1), because the JAX package's encoder calls
     ``gqa_attention_full(window=None)``, whose mask is causal (ROADMAP
     C); it stays dense under ``use_kernel``, as there. ``remat``
-    checkpoints each block. Returns [B, T, D]."""
+    checkpoints each block; ``act_spec`` lays out the residual stream
+    (:func:`forward_full`). Returns [B, T, D]."""
     check_ported(cfg)
-    h = encoder_embeds
+    h = L.constrain(encoder_embeds, act_spec)
     B, T, _ = h.shape
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
     enc = params["encoder"]
     for l in range(cfg.num_encoder_layers):
-        h = _body(remat, _encoder_block, _index(enc, l), cfg, h, positions)
+        h = _body(remat, _encoder_block, _index(enc, l), cfg, h, positions,
+                  act_spec)
     return L.rms_norm(h, params["encoder_norm"], cfg.norm_eps)
 
 
 def _encoder_block(lp: dict, cfg: ModelConfig, h: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, act_spec=None) -> torch.Tensor:
     h = h + L.gqa_attention_full(
         lp["attn"], cfg, L.rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
         window=None)
-    return h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return L.constrain(
+        h + L.swiglu(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps)),
+        act_spec)
 
 
 def _hybrid_group_full(gp: dict, sa: dict, cfg: ModelConfig,
                        h: torch.Tensor, positions: torch.Tensor,
-                       return_kv: bool, use_kernel: bool):
+                       return_kv: bool, use_kernel: bool, act_spec=None,
+                       kv_specs: Optional[dict] = None):
     """One hybrid group: its ``per`` Mamba2 layers, then the shared
     attention block: (h, the group's end state or None, (k, v) or
-    None)."""
+    None). ``act_spec`` lays out the group's output, as the JAX
+    package's hybrid does (not its Mamba2 layers')."""
     h, st = _ssm_stack_full(gp, cfg.hybrid_attn_every, cfg, h, return_kv,
-                            use_kernel)
+                            use_kernel, kv_specs=kv_specs)
     h, kv, _ = _attn_block_full(sa, cfg, h, positions, return_kv,
-                                use_kernel)
+                                use_kernel, act_spec=act_spec,
+                                kv_specs=kv_specs)
     return h, st, kv
 
 
 def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
                        positions: torch.Tensor, return_kv: bool,
-                       use_kernel: bool, remat: bool = False):
+                       use_kernel: bool, remat: bool = False,
+                       act_spec=None, kv_specs: Optional[dict] = None):
     """The hybrid's G groups over a full sequence, each ``per`` Mamba2
     layers and then the shared attention block (``remat`` checkpoints
     each group): (h, ((ssm_state [G, per, B, H, P, N], conv_state
@@ -275,7 +309,7 @@ def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
     for g in range(G):
         h, st, kv = _body(remat, _hybrid_group_full,
                           _index(params["layers"], g), sa, cfg, h, positions,
-                          return_kv, use_kernel)
+                          return_kv, use_kernel, act_spec, kv_specs)
         if return_kv:
             states.append(st)
             ks.append(kv[0])
@@ -288,7 +322,8 @@ def _hybrid_stack_full(params: dict, cfg: ModelConfig, h: torch.Tensor,
 
 
 def _ssm_layer_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
-                    return_kv: bool, use_kernel: bool):
+                    return_kv: bool, use_kernel: bool, act_spec=None,
+                    kv_specs: Optional[dict] = None):
     """One Mamba2 layer over a full sequence: (h, (ssm_state, conv_state)
     or None)."""
     x_in = L.rms_norm(h, lp["norm"], cfg.norm_eps)
@@ -296,20 +331,24 @@ def _ssm_layer_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
         out, s_l, c_l = L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
                                             use_kernel=use_kernel,
                                             return_state=True)
-        return h + out, (s_l, c_l)
-    return h + L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
-                                   use_kernel=use_kernel), None
+        return (L.constrain(h + out, act_spec),
+                (_kv_hook(kv_specs, "ssm", s_l),
+                 _kv_hook(kv_specs, "conv", c_l)))
+    return L.constrain(h + L.mamba2_mixer_full(lp["mixer"], cfg, x_in,
+                                               use_kernel=use_kernel),
+                       act_spec), None
 
 
 def _ssm_stack_full(layers: dict, n: int, cfg: ModelConfig, h: torch.Tensor,
-                    return_kv: bool, use_kernel: bool, remat: bool = False):
+                    return_kv: bool, use_kernel: bool, remat: bool = False,
+                    act_spec=None, kv_specs: Optional[dict] = None):
     """``n`` Mamba2 layers (``layers``: {norm, mixer} stacked over them)
     over a full sequence, ``remat`` checkpointing each: (h, (ssm_state
     [n, B, H, P, N] f32, conv_state [n, B, W-1, di+2N]) or None)."""
     states = []
     for l in range(n):
         h, st = _body(remat, _ssm_layer_full, _index(layers, l), cfg, h,
-                      return_kv, use_kernel)
+                      return_kv, use_kernel, act_spec, kv_specs)
         states.append(st)
     if not return_kv:
         return h, None
@@ -322,7 +361,8 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  modality_embeds: Optional[torch.Tensor] = None,
                  encoder_embeds: Optional[torch.Tensor] = None,
                  remat: bool = False,
-                 tp: Optional[L.TensorParallel] = None) -> dict:
+                 tp: Optional[L.TensorParallel] = None,
+                 act_spec=None, kv_specs: Optional[dict] = None) -> dict:
     """tokens [B, S]. Returns {logits, hidden, aux_loss[, kvs]}, with
     kvs = (k, v) each [L, B, S, KVH, hd] (rope applied) for the dense
     stack, MLA's latent entries [L, B, S, kv_lora + rope], (ssm_state
@@ -343,10 +383,19 @@ def forward_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the JAX package's ``jax.checkpoint`` does. ``tp`` (serving mesh, the
     dense GQA stack): every "data" rank runs the batch whole, over its
     own heads, and the kvs hold the kv heads its pools hold; the logits
-    are gathered over "model"."""
+    are gathered over "model".
+
+    The sharding hooks (the production dry run, over DTensors; see
+    ``layers.constrain``): ``act_spec`` (placements of the residual
+    stream [B, S, D]) lays out the embeddings and each layer's output,
+    ``kv_specs`` ({"kv", "mla", "ssm", "conv"} -> placements of one
+    layer's emitted K/V or state, and "moe_experts" for the expert
+    weights) the kvs, as the JAX package's ``with_sharding_constraint``s
+    do. On plain tensors they change nothing."""
     hidden, kvs, aux = _forward_hidden(params, cfg, tokens, return_kv,
                                        use_kernel, modality_embeds,
-                                       encoder_embeds, remat, tp)
+                                       encoder_embeds, remat, tp, act_spec,
+                                       kv_specs)
     out = {"logits": _logits(params, cfg, hidden, tp), "hidden": hidden,
            "aux_loss": aux}
     if return_kv:
@@ -420,15 +469,16 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _mamba_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
-                  l: int, use_kernel: bool) -> torch.Tensor:
+                  l: int, use_kernel: bool,
+                  kv_specs: Optional[dict] = None) -> torch.Tensor:
     """One Mamba2 layer's decode over layer ``l`` of the recurrent state
-    (updated in place)."""
+    (updated in place; ``kv_specs`` lays out the new state first)."""
     out, ns, nc = L.mamba2_mixer_decode(
         lp["mixer"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
         cache["ssm_state"][l], cache["conv_state"][l], use_kernel=use_kernel)
     if not use_kernel:  # the kernel wrote the layer's state in place
-        cache["ssm_state"][l] = ns
-        cache["conv_state"][l] = nc
+        cache["ssm_state"][l] = _kv_hook(kv_specs, "ssm", ns)
+        cache["conv_state"][l] = _kv_hook(kv_specs, "conv", nc)
     return h + out
 
 
@@ -579,7 +629,8 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def serve_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                      positions: torch.Tensor, cache: dict) -> dict:
+                      positions: torch.Tensor, cache: dict,
+                      kv_specs: Optional[dict] = None) -> dict:
     """tokens [B, 1]; positions [B]; cache as ``configs.base``'s
     ``kv_cache_specs`` lays it out: ring buffers ``k_cache``/``v_cache``
     [La, B, cap, KVH, hd] (MLA: ``kv_cache`` [La, B, cap, kv_lora +
@@ -588,25 +639,30 @@ def serve_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``cross_v`` [La, B, T, KVH, hd]. Every entry is written in place (the
     hybrid's state through its [G, per, ...] view, its caches one per
     group); the cross caches are only read. Dense throughout, as in the
-    JAX package. Returns {logits [B, Vp], hidden [B, D], cache}."""
+    JAX package. ``kv_specs`` (the production dry run, over DTensors; see
+    :func:`forward_full`) lays out each layer's new cache entry or
+    state ("kv", "mla", "ssm", "conv") and an MoE's expert weights and
+    dispatched inputs ("moe_experts", "moe_ex_in"). Returns
+    {logits [B, Vp], hidden [B, D], cache}."""
     check_ported(cfg)
     h = _embed(params, cfg, tokens)  # [B, 1, D]
     if cfg.arch_type == "ssm":
         for l in range(cfg.num_layers):
-            h = _mamba_decode(_layer(params, l), cfg, h, cache, l, False)
+            h = _mamba_decode(_layer(params, l), cfg, h, cache, l, False,
+                              kv_specs)
     elif cfg.arch_type == "hybrid":
         G, per = _groups(cfg)
         for g in range(G):
             gp = _index(params["layers"], g)
             for i in range(per):
                 h = _mamba_decode(_index(gp, i), cfg, h, cache, g * per + i,
-                                  False)
+                                  False, kv_specs)
             h = _attn_decode_contiguous(params["shared_attn"], cfg, h,
-                                        positions, cache, g)
+                                        positions, cache, g, kv_specs)
     else:
         for l in range(cfg.num_layers):
             h = _attn_decode_contiguous(_layer(params, l), cfg, h, positions,
-                                        cache, l)
+                                        cache, l, kv_specs)
     hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
     return {"logits": _logits(params, cfg, hidden), "hidden": hidden,
             "cache": dict(cache)}
@@ -614,25 +670,33 @@ def serve_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _attn_decode_contiguous(lp: dict, cfg: ModelConfig, h: torch.Tensor,
                             positions: torch.Tensor, cache: dict,
-                            idx: int) -> torch.Tensor:
+                            idx: int,
+                            kv_specs: Optional[dict] = None) -> torch.Tensor:
     """One decoder layer's decode against entry ``idx`` of the contiguous
-    caches (and, for an encoder-decoder, of the cross caches)."""
+    caches (and, for an encoder-decoder, of the cross caches). The layer
+    reads and writes its entry laid out by ``kv_specs``; an entry laid
+    out otherwise than the cache's is written back into the cache."""
     a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    keys = ("kv_cache",) if cfg.use_mla else ("k_cache", "v_cache")
+    entries = [cache[k][idx] for k in keys]
+    layer = [_kv_hook(kv_specs, "mla" if cfg.use_mla else "kv", e)
+             for e in entries]
     if cfg.use_mla:
         a = L.mla_attention_decode_contiguous(lp["attn"], cfg, a_in,
-                                              positions,
-                                              cache["kv_cache"][idx])
+                                              positions, *layer)
     else:
         a = L.gqa_attention_decode_contiguous(lp["attn"], cfg, a_in,
-                                              positions,
-                                              cache["k_cache"][idx],
-                                              cache["v_cache"][idx])
+                                              positions, *layer)
+    for e, new in zip(entries, layer):
+        if new is not e:
+            e.copy_(new)
     h = h + a
     if cfg.is_encoder_decoder:
         h = h + L.cross_attention(
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             cache["cross_k"][idx], cache["cross_v"][idx])
-    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
+    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps),
+                    kv_specs=kv_specs, ex_in=True)[0]
 
 
 def write_contiguous_kv(cfg: ModelConfig, cache: dict, kvs) -> dict:
@@ -846,14 +910,16 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             use_kernel: bool = False,
             modality_embeds: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, act_spec=None,
+            kv_specs: Optional[dict] = None) -> torch.Tensor:
     """Mean next-token NLL over the labels inside [0, vocab_size) (the
     others are masked), plus ``aux_weight`` times the MoE layers' summed
     load-balancing loss (0 without MoE). tokens/labels [B, S]; an
     encoder-decoder's decoder reads ``encoder_embeds`` [B, T, D].
-    ``remat``: see :func:`forward_full`."""
+    ``remat``, ``act_spec`` and ``kv_specs``: see :func:`forward_full`."""
     hidden, _, aux = _forward_hidden(params, cfg, tokens, False, use_kernel,
-                                     modality_embeds, encoder_embeds, remat)
+                                     modality_embeds, encoder_embeds, remat,
+                                     act_spec=act_spec, kv_specs=kv_specs)
     valid = (labels >= 0) & (labels < cfg.vocab_size)
     n = valid.sum().clamp(min=1)
     if tokens.shape[1] > CHUNKED_CE_THRESHOLD:

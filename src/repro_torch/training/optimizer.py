@@ -8,6 +8,11 @@ the only extra memory (a whole stacked MLP weight of qwen3-4b would need
 about 20 GB of them). The arithmetic is the JAX package's, elementwise and
 in the same order: f32 math, moments stored in ``moment_dtype``,
 global-norm gradient clipping, bias corrections and the schedule in f32.
+
+DTensor params (the production dry run's) are updated shard by shard: a
+gradient is first laid out as its param (the data-parallel reduction),
+the moments are laid out as the params already, and the elementwise
+update runs on each rank's local shards, which is exact.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training import tree as T
 
@@ -33,6 +39,25 @@ def _blocks(*tensors):
         return [tensors]
     rows = max(1, BLOCK_ELEMENTS // (t.numel() // t.shape[0]))
     return zip(*(x.split(rows) for x in tensors))
+
+
+def local_shard(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, or ``x`` itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _as_param(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor):
+    """Local shards of a param, its gradient and moments (a DTensor
+    gradient laid out as its param first; the moments must be)."""
+    if isinstance(p, DTensor):
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        for x in (m, v):
+            if tuple(x.placements) != tuple(p.placements):
+                raise ValueError(f"a moment laid out as {x.placements} "
+                                 f"for a param laid out as {p.placements}")
+    return tuple(map(local_shard, (p, g, m, v)))
 
 
 class AdamState(NamedTuple):
@@ -74,6 +99,8 @@ class AdamW:
         scale = None
         if self.grad_clip is not None:
             gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+            if isinstance(gnorm, DTensor):
+                gnorm = gnorm.full_tensor()
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         lr = self._lr(step)
         # bias corrections in f32, as the JAX package computes them
@@ -81,7 +108,7 @@ class AdamW:
         b2c = float(np.float32(1) - np.float32(self.b2) ** np.float32(step))
         for leaf in zip(T.leaves(params), gs, T.leaves(state.mu),
                         T.leaves(state.nu)):
-            for p, g, m, v in _blocks(*leaf):
+            for p, g, m, v in _blocks(*_as_param(*leaf)):
                 g = g.float() if scale is None else g.float() * scale
                 m_new = self.b1 * m.float() + (1 - self.b1) * g
                 v_new = self.b2 * v.float() + (1 - self.b2) * g.square()

@@ -317,3 +317,102 @@ def assert_shards(ranks: list, model: int) -> None:
         assert c["wq_slice_equal"]
         assert c["tampered"].startswith(
             "RuntimeError: the mesh's ranks disagree")
+
+
+# ---------------------------------------------------------------------------
+# the dry run's partitioning rules (``launch.spmd``): each rule's result
+# on a (data 2, model 2) mesh against the plain op on the whole tensors
+# ---------------------------------------------------------------------------
+
+def spmd_rule_values() -> dict:
+    """name -> (the rule's result gathered whole, the plain op's, the
+    result's placements as text), for each rule of ``launch.spmd`` on
+    operands laid out over a (2, 2) mesh. Every rank builds the same
+    whole tensors from one seed."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.spmd import SpmdRules
+    from repro_torch.models.layers import contiguous_kv_update
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    g = torch.Generator().manual_seed(0)
+    R_, S0, S1, S2 = Replicate(), Shard(0), Shard(1), Shard(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def lay(t, *pl):
+        return distribute_tensor(t, mesh, list(pl))
+
+    x16, x32 = rand(4, 8, 16), rand(4, 8, 32)
+    w16_32, w32_16, we = rand(16, 32), rand(32, 16), rand(2, 16, 32)
+    xe = rand(2, 8, 16)
+    q, k = rand(4, 4, 8, 16), rand(4, 4, 8, 16)
+    table = rand(32, 16)
+    tokens = torch.randint(0, 32, (4, 8), generator=g)
+    logits, row = rand(4, 32), rand(1, 32)
+    gold = torch.randint(0, 32, (4, 1), generator=g)
+    x48, x64, scale = rand(4, 8, 48), rand(4, 8, 64), rand(16)
+    cache, new = rand(4, 8, 2, 16), rand(4, 2, 16)
+    slot = torch.tensor([7, 0, 3, 5])
+
+    cases = {
+        "product_column_parallel": (
+            lambda: lay(x16, S0, S2) @ lay(w16_32, R_, S1), x16 @ w16_32),
+        "product_row_parallel": (
+            lambda: lay(x32, S0, S2) @ lay(w32_16, R_, S0), x32 @ w32_16),
+        "product_fsdp": (
+            lambda: lay(x16, S0, R_) @ lay(w16_32, S0, S1), x16 @ w16_32),
+        "product_experts": (
+            lambda: lay(xe, R_, R_) @ lay(we, R_, S0), xe @ we),
+        "einsum_batch_heads": (
+            lambda: torch.einsum("bhqd,bhkd->bhqk", lay(q, S0, S1),
+                                 lay(k, S0, S1)),
+            torch.einsum("bhqd,bhkd->bhqk", q, k)),
+        "lookup_vocab_rows": (
+            lambda: lay(table, R_, S0)[lay(tokens, S0, R_)], table[tokens]),
+        "lookup_fsdp": (
+            lambda: lay(table, S1, S0)[lay(tokens, S0, R_)], table[tokens]),
+        "gather_vocab": (
+            lambda: torch.gather(lay(logits, S0, S1), 1, lay(gold, S0, R_)),
+            torch.gather(logits, 1, gold)),
+        "logsumexp_vocab": (
+            lambda: torch.logsumexp(lay(logits, S0, S1), -1),
+            torch.logsumexp(logits, -1)),
+        "argmax_vocab": (
+            lambda: torch.argmax(lay(logits, S0, S1), -1),
+            torch.argmax(logits, -1)),
+        "argmax_batch_of_one": (
+            lambda: torch.argmax(lay(row, R_, S1), -1),
+            torch.argmax(row, -1)),
+        "reshape_heads": (
+            lambda: lay(x64, S0, S2).reshape(4, 8, 4, 16),
+            x64.reshape(4, 8, 4, 16)),
+        "reshape_gathered": (
+            lambda: lay(x48, S0, S2).reshape(4, 8, 3, 16),
+            x48.reshape(4, 8, 3, 16)),
+        "scale_follows_activation": (
+            lambda: lay(x16, S0, S2) * lay(scale, R_, R_), x16 * scale),
+        "scale_gathered": (
+            lambda: lay(x16, S0, R_) + lay(scale, R_, S0), x16 + scale),
+    }
+    want = cache.clone()
+    want[torch.arange(4), slot] = new
+    for name, pl in {"write_rows_and_slots": (S0, S1),
+                     "write_slots_and_heads": (S1, S2),
+                     "write_slots_twice": (S1, S1)}.items():
+        def write(pl=pl):
+            c = lay(cache.clone(), *pl)
+            contiguous_kv_update(c, lay(slot, S0, R_), lay(new, S0, R_))
+            return c
+        cases[name] = (write, want)
+
+    out = {}
+    for name, (rule, plain) in cases.items():
+        with implicit_replication(), SpmdRules():
+            got = rule()
+        out[name] = (got.full_tensor(), plain, str(tuple(got.placements)))
+    return out

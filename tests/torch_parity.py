@@ -78,3 +78,81 @@ def mesh_setup(path, names) -> dict:
               for name in names}
     return {"path": path, "jp": jp, "js": js, "jcfg": jcfg, "tok": tok,
             "single": single}
+
+
+# ---------------------------------------------------------------------------
+# the production dry run: the JAX package's records beside the port's
+# ---------------------------------------------------------------------------
+
+# The JAX package's ``run_one`` over its production mesh with automatic
+# axes: the JAX here makes ``jax.make_mesh``'s axes explicit by default,
+# and the reference's ``with_sharding_constraint`` calls refuse explicit
+# axes. Its layouts and steps are its own. Run in a subprocess: the
+# module sets ``XLA_FLAGS`` to 512 host devices at import.
+REFERENCE_DRYRUN = """
+import json, sys
+import jax
+from repro.launch import dryrun
+
+def make_production_mesh(*, multi_pod=False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    kw = {}
+    if hasattr(jax.sharding, "AxisType"):
+        kw["axis_types"] = (jax.sharding.AxisType.Auto,) * len(shape)
+    return jax.make_mesh(shape, axes, **kw)
+
+dryrun.make_production_mesh = make_production_mesh
+recs = {s: dryrun.run_one(sys.argv[1], s, False, save=False)
+        for s in sys.argv[2:]}
+print(json.dumps(recs, default=str))
+"""
+
+
+def dryrun_records(arch: str, shapes) -> tuple:
+    """(the JAX package's dry-run records, the port's), by shape, of
+    ``arch`` over the 256-rank mesh; each must be ``ok``. The reference's
+    subprocess runs while the port traces its steps."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch import dryrun
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    env.pop("XLA_FLAGS", None)
+    with subprocess.Popen([sys.executable, "-c", REFERENCE_DRYRUN, arch,
+                           *shapes], env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True) as child:
+        try:
+            port = {s: dryrun.run_one(arch, s, False, save=False)
+                    for s in shapes}
+            out, err = child.communicate(timeout=600)
+        finally:
+            child.kill()
+    assert child.returncode == 0, err[-3000:]
+    reference = json.loads(out.strip().splitlines()[-1])
+    for recs in (reference, port):
+        for shape, rec in recs.items():
+            assert rec["status"] == "ok", (shape, rec.get("reason"))
+    return reference, port
+
+
+def assert_collectives_like(ref: dict, got: dict) -> None:
+    """The collectives of a port's dry-run record against the reference's
+    (see ``tests/test_torch_dryrun_parity.py``): both gather and both
+    reduce, the port's kinds are the reference's or a reduce-scatter,
+    and its bytes lie between an eighth of the reference's and all of
+    them."""
+    ref_kinds = set(ref["collective_breakdown"])
+    kinds = set(got["collective_breakdown"])
+    reduces = {"all-reduce", "reduce-scatter"}
+    assert "all-gather" in ref_kinds and "all-gather" in kinds
+    assert ref_kinds & reduces and kinds & reduces
+    assert kinds <= ref_kinds | {"reduce-scatter"}
+    ratio = got["collective_bytes_per_dev"] / ref["collective_bytes_per_dev"]
+    assert 1 / 8 <= ratio <= 1, ratio
