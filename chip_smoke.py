@@ -82,6 +82,13 @@ Phases, each printing one JSON line:
                 preempts and waits), an online chunked run and an int8
                 run: K1a, K1b, K1c and K2 at the serving config's shapes,
                 graph captures and their seconds;
+     examples — ``examples/torch_quickstart.py``'s ``main`` as a user
+                runs it, at its own scale (300 LM steps on the serving
+                config, the scorer built from its samples, SC against STEP
+                under a 12-block pool), kernels on ("auto") and prompts
+                prefilled in chunks of 8: SC's and STEP's latency, wait,
+                prunes and preemptions, and the K1a, K1b and K2 launches
+                it made, each nonzero;
  11. serve_mamba2 — qwen3's params freed, STEP serving of mamba2-2.7b at
                 full width (64 layers, random seeded weights, per-slot
                 recurrent state, no KV pool) through ``Engine.serve``,
@@ -145,12 +152,16 @@ Phases, each printing one JSON line:
 
 Beside all of these, from the start, a child process runs the
 production dry run on the host's CPU (``dryrun``: ``python -m
-repro_torch.launch.dryrun --arch qwen3-4b-thinking --both-meshes``, one
-thread, on a core of its own that the script's threads leave to it):
-every shape over the 256- and 512-rank meshes of a fake process
-group. Its records are read at the end: each must be ``ok``; their
-status, dominant roofline term, per-device GiB and trace seconds are
-printed (counts at datasheet peaks, not measurements).
+repro_torch.launch.dryrun --arch qwen3-4b-thinking --both-meshes``, then
+``--arch granite-20b --shape train_4k --multi-pod``, one thread, on a
+core of its own that the script's threads leave to it): every shape of
+qwen3-4b-thinking over the 256- and 512-rank meshes of a fake process
+group, and granite-20b's train_4k over the 512-rank mesh (whose
+tracing time rests on ``launch.spmd``'s layout of its attention's P.V).
+Its records are read at the end: each must be ``ok``;
+their status, dominant roofline term, per-device GiB and trace seconds
+are printed (counts at datasheet peaks, not measurements), with the
+seconds the script waited for the child.
 
 The kernels phase also checks K1a/K1c at batched_mixtral's decode (4
 lanes over 288-page rows: each lane's pages in 9 parts, merged), K1b/K1c
@@ -2870,6 +2881,52 @@ def phase_launch_serve(rt, ops):
     return out
 
 
+# the quickstart's flags: its own scale and defaults (kernels "auto": on
+# the card), with prompts prefilled in chunks of 8 so that K1b runs too
+EXAMPLE_ARGV = ["--chunk", "8"]
+
+
+def phase_examples(ops):
+    """``examples/torch_quickstart.py``'s ``main`` on the card at its own
+    scale (``EXAMPLE_ARGV``): it trains the tiny LM (300 steps), builds
+    the step scorer and serves one problem with SC and with STEP under
+    the 12-block pool. Checks that each method served its 8 traces and
+    that K1a, K1b and K2 launched; reports each method's answer,
+    latency, wait, prunes and preemptions, the launches and the wall
+    seconds."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = quickstart.main(EXAMPLE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out = {"argv": " ".join(EXAMPLE_ARGV), "wall_s": wall,
+           "launches": {k: launches[k] for k in (
+               "paged_attention_decode", "paged_attention_prefill",
+               "step_score", "decode_graph_captures",
+               "decode_graph_replays")}}
+    for method in ("sc", "step"):
+        r = res[method]
+        check(r.latency_s > 0 and len(r.traces) == 8,
+              f"examples {method}: latency {r.latency_s}, "
+              f"{len(r.traces)} traces")
+        out[method] = {"answer": r.answer, "latency_s": r.latency_s,
+                       "wait_s": r.wait_s, "pruned": r.num_pruned,
+                       "preemptions": r.num_preemptions}
+    for name in ("paged_attention_decode", "paged_attention_prefill",
+                 "step_score"):
+        check(launches[name] > 0, f"examples: {name} never launched")
+    emit("examples", **out)
+    return out
+
+
 def phase_launch_steps(rt, ops, cfg, params):
     """``launch.steps`` at full width: ``make_prefill_step`` over a
     ``LAUNCH_PROMPT``-token prompt in each of ``LAUNCH_B`` lanes, its K/V
@@ -3040,14 +3097,20 @@ def phase_roofline_decode(rt, cfg, params):
     return out
 
 
-DRYRUN_RECORDS = [(shape, mesh) for mesh in ("pod16x16", "pod2x16x16")
+DRYRUN_RECORDS = [("qwen3-4b-thinking", shape, mesh)
+                  for mesh in ("pod16x16", "pod2x16x16")
                   for shape in ("train_4k", "prefill_32k", "decode_32k",
-                                "long_500k")]
+                                "long_500k")] \
+    + [("granite-20b", "train_4k", "pod2x16x16")]
+# the child's two runs of the dry-run CLI
+DRYRUN_ARGV = (["--arch", "qwen3-4b-thinking", "--both-meshes"],
+               ["--arch", "granite-20b", "--shape", "train_4k",
+                "--multi-pod"])
 
 
-def dryrun_record(shape, mesh) -> Path:
+def dryrun_record(arch, shape, mesh) -> Path:
     from repro_torch.launch import dryrun
-    return Path(dryrun.OUT_DIR) / f"qwen3-4b-thinking__{shape}__{mesh}.json"
+    return Path(dryrun.OUT_DIR) / f"{arch}__{shape}__{mesh}.json"
 
 
 def stop(proc) -> None:
@@ -3057,20 +3120,22 @@ def stop(proc) -> None:
 
 
 def start_dryrun():
-    """Start the production dry run of qwen3-4b-thinking on both meshes in
-    a child process on the host's CPU (one thread; no card), beside the
-    phases on the card, its earlier records deleted first. Returns the
-    process; it is killed at exit if it still runs."""
-    for shape, mesh in DRYRUN_RECORDS:
-        dryrun_record(shape, mesh).unlink(missing_ok=True)
+    """Start the production dry run (``DRYRUN_ARGV``, one CLI run after
+    the other) in a child process on the host's CPU (one thread; no
+    card), beside the phases on the card, its earlier records deleted
+    first. Returns the process; it is killed at exit if it still runs."""
+    for rec in DRYRUN_RECORDS:
+        dryrun_record(*rec).unlink(missing_ok=True)
     out_dir = dryrun_record(*DRYRUN_RECORDS[0]).parent
     out_dir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    runs = " | ".join(f"dryrun.main({argv!r})" for argv in DRYRUN_ARGV)
     with open(out_dir / "dryrun.log", "w") as log:   # DTensor's warnings
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "qwen3-4b-thinking", "--both-meshes"], cwd=ROOT, env=env,
+            [sys.executable, "-c", "import sys\n"
+             "from repro_torch.launch import dryrun\n"
+             f"sys.exit({runs})"], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=log, text=True)
     atexit.register(stop, proc)
     pin_apart(proc)
@@ -3095,9 +3160,10 @@ def pin_apart(proc) -> None:
 
 def phase_dryrun(proc):
     """Wait for the dry run (``start_dryrun``; until ``DRYRUN_DEADLINE_S``
-    after the script's start at most) and check its records: each (shape,
-    mesh) of qwen3-4b-thinking is ``ok``. Prints each record's status,
-    dominant term, per-device GiB and trace seconds."""
+    after the script's start at most) and check its records: each (arch,
+    shape, mesh) of ``DRYRUN_RECORDS`` is ``ok``. Prints each record's
+    status, dominant term, per-device GiB and trace seconds, both runs'
+    summary lines and the seconds waited."""
     t0 = time.perf_counter()
     try:
         out, _ = proc.communicate(
@@ -3106,20 +3172,22 @@ def phase_dryrun(proc):
         stop(proc)
     waited = time.perf_counter() - t0
     records = []
-    for shape, mesh in DRYRUN_RECORDS:
-        path = dryrun_record(shape, mesh)
-        check(path.exists(), f"dryrun: no record for {shape} {mesh}")
+    for arch, shape, mesh in DRYRUN_RECORDS:
+        path = dryrun_record(arch, shape, mesh)
+        check(path.exists(), f"dryrun: no record for {arch} {shape} {mesh}")
         rec = json.loads(path.read_text())
-        check(rec["status"] == "ok",
-              f"dryrun {shape} {mesh}: {rec['status']} {rec.get('reason')}")
+        check(rec["status"] == "ok", f"dryrun {arch} {shape} {mesh}: "
+              f"{rec['status']} {rec.get('reason')}")
         records.append({k: rec.get(k) for k in (
-            "shape", "mesh", "status", "dominant", "per_device_hbm_gib",
+            "arch", "shape", "mesh", "status", "dominant",
+            "per_device_hbm_gib",
             "trace_s", "hlo_flops_per_dev", "hlo_bytes_per_dev",
             "collective_bytes_per_dev", "t_compute_s", "t_memory_s",
             "t_collective_s", "useful_flops_ratio")})
     check(proc.returncode == 0, f"dryrun: exit code {proc.returncode}")
-    emit("dryrun", records=records, summary=out.strip().splitlines()[-1],
-         waited_s=waited)
+    emit("dryrun", records=records,
+         summary=[line for line in out.splitlines()
+                  if line.startswith("dry-run:")], waited_s=waited)
     return records
 
 
@@ -3462,6 +3530,7 @@ def main() -> int:
     mesh_run = phase_serve_mesh(rt)
     phase_launch_train(rt)
     launch = phase_launch_serve(rt, ops)
+    phase_examples(ops)
     recurrent = {}
     for arch, tag in (("mamba2-2.7b", "mamba2"), ("zamba2-2.7b", "zamba2")):
         mcfg, mparams, mscorer, n_params, init_s = full_model(rt, arch)

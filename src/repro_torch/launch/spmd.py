@@ -24,7 +24,14 @@ places, each a rule here:
   * **Einsums whose split dims are batch dims** (attention's batch and
     heads): run on the local shards. DTensor reaches an einsum as a
     bmm over flattened batch dims, and gathers every split dim after
-    the first.
+    the first. Where two operands split different letters over one
+    mesh dim and both have the larger's letter (a multi-query
+    attention's P.V: the values split along head_dim over "model", the
+    weights along the heads), the smaller moves its split to that
+    letter. DTensor would flatten the batch and heads, split over two
+    mesh dims, into one strided split, which sends every later op's
+    layout search through its exhaustive redistribution planner:
+    minutes a shape on the 3-D mesh.
   * **A lookup or a gather along a split dim** (the embedding's rows
     of a vocab-split table, the loss's gold logit over a vocab-split
     row): each rank looks up the indices that fall in its share, the
@@ -164,13 +171,14 @@ def local_operand(x: DTensor, placements, partial_grad) -> torch.Tensor:
 
 
 def local_einsum(eq: str, operands: Sequence) -> Optional[DTensor]:
-    """``torch.einsum(eq, *operands)`` run on the local shards, when each
-    mesh dim splits at most one letter of ``eq`` across the DTensor
-    operands (each operand that has the letter is split along it there,
-    the others are whole): a letter of the output stays split, a
-    contracted one leaves a partial sum. None when the operands split
-    different letters over one mesh dim, hold a partial sum, or the
-    equation has an ellipsis or a repeated letter."""
+    """``torch.einsum(eq, *operands)`` run on the local shards: each mesh
+    dim splits the letter that the largest operand splits there (or the
+    next largest, where it is whole), each operand that has that letter
+    is split along it there and the others are whole; a letter of the
+    output stays split, a contracted one leaves a partial sum. None when
+    an operand splits another letter over a mesh dim and lacks the
+    chosen one, holds a partial sum, a split letter does not divide its
+    mesh dims, or the equation has an ellipsis or a repeated letter."""
     eq = eq.replace(" ", "")
     if "..." in eq or "->" not in eq:
         return None
@@ -185,6 +193,9 @@ def local_einsum(eq: str, operands: Sequence) -> Optional[DTensor]:
     sizes = {}
     for x, sub in zip(operands, subs):
         sizes.update(zip(sub, x.shape))
+    # the largest operand's splits first: an operand that splits another
+    # letter over the same mesh dim moves its split to the larger's letter
+    for x, sub in sorted(zip(operands, subs), key=lambda xs: -xs[0].numel()):
         if not isinstance(x, DTensor):
             continue
         if x.device_mesh != mesh:
@@ -192,11 +203,12 @@ def local_einsum(eq: str, operands: Sequence) -> Optional[DTensor]:
         for i, p in enumerate(x.placements):
             if p.is_partial():
                 return None
-            if p.is_shard():
-                letter = sub[p.dim]
-                if letter_of[i] not in (None, letter):
-                    return None
-                letter_of[i] = letter
+            if not p.is_shard():
+                continue
+            if letter_of[i] is None:
+                letter_of[i] = sub[p.dim]
+            elif letter_of[i] not in sub:
+                return None
     if all(letter is None for letter in letter_of):
         return None
     for letter in set(letter_of) - {None}:

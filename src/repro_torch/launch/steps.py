@@ -31,14 +31,17 @@ def _rows(x: torch.Tensor, i: int, k: int) -> torch.Tensor:
     A DTensor batch takes the i-th block of each rank's own rows, as data
     parallelism splits it (the blocks are other rows than the plain
     path's, of the same size, so the mean loss and summed gradients are
-    the same up to rounding)."""
+    the same up to rounding). A rank that holds fewer rows than there
+    are microbatches gives each microbatch one of its rows, row
+    ``i * n // k``: XLA pads a microbatch whose rows do not divide the
+    batch's ranks to one row on each, and each rank computes that one."""
     rows = local_shard(x)
     n = rows.shape[0]
-    piece = rows[i * n // k:(i + 1) * n // k]
+    lo, hi = i * n // k, (i + 1) * n // k
     if rows is x:
-        return piece
-    return type(x).from_local(piece, x.device_mesh, x.placements,
-                              run_check=False)
+        return x[lo:hi]
+    return type(x).from_local(rows[lo:max(hi, lo + 1)], x.device_mesh,
+                              x.placements, run_check=False)
 
 
 def make_train_step(cfg: ModelConfig, lr: float = 1e-4,

@@ -8,7 +8,8 @@ package is a greedy contract (``temperature <= 0`` draws nothing); the
 sampled path is held to it by passing both the same ``noise``. PyTorch
 runs eagerly, so the host-side call sites (prefill first-token sampling,
 the data pipeline) call these functions directly: ``sample_tokens``, the
-JAX package's jitted wrapper, is ``sample_logits`` itself.
+JAX package's jitted wrapper, is ``sample_logits`` itself, and
+``sample_tokens_lanes`` is ``sample_logits_lanes``.
 """
 from __future__ import annotations
 
@@ -114,3 +115,6 @@ def sample_logits_lanes(rng: Optional[torch.Generator],
     greedy = logits_f.argmax(dim=-1)
     tokens = torch.where(temperature[:, 0] <= 0.0, greedy, sampled)
     return tokens.to(torch.int32), _confidence(base_logp, tokens)
+
+
+sample_tokens_lanes = sample_logits_lanes

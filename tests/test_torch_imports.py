@@ -47,7 +47,7 @@ def test_port_has_modules():
                  "core/scorer.py", "core/pipeline.py",
                  "launch/steps.py", "launch/train.py", "launch/serve.py",
                  "launch/artifacts.py", "launch/mesh.py",
-                 "launch/shardings.py"):
+                 "launch/shardings.py", "kernels/ref.py"):
         assert want in names
 
 
@@ -97,6 +97,8 @@ def test_no_nvcc_lookup_at_import():
             "shutil.which = lambda *a, **k: calls.append(a) or orig(*a, **k)\n"
             "import repro_torch.kernels.ops\n"
             "import repro_torch.serving.engine\n"
+            "import repro_torch.core, repro_torch.serving\n"
+            "from repro_torch.kernels import ops, ref\n"
             "assert calls == [], calls\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,

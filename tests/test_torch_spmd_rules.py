@@ -101,6 +101,20 @@ def test_einsum_over_split_batch_dims_runs_locally(mesh):
     _check(cost, 2 * 4 * 8 * 8 * 16, {})
 
 
+def test_einsum_with_other_split_letters_follows_the_larger(mesh):
+    """A multi-query P.V: the weights [4, 4, 16, 8] split on (batch,
+    heads), the values [4, 4, 8, 4] on (batch, head_dim). The larger
+    operand keeps its split: the values move to the heads over "model"
+    (an all-to-all of rank 0's [2, 4, 8, 2]), and rank 0 computes its
+    [2, 2] (batch, head) pairs. No strided split arises, so DTensor's
+    exhaustive redistribution planner is never asked."""
+    out, cost = _run(lambda: torch.einsum(
+        "bhqk,bhkd->bhqd", _meta(mesh, (4, 4, 16, 8), S0, S1),
+        _meta(mesh, (4, 4, 8, 4), S0, Shard(3))))
+    assert out.placements == (S0, S1) and out.shape == (4, 4, 16, 4)
+    _check(cost, 2 * 2 * 2 * 16 * 8 * 4, {"all-to-all": 2 * 4 * 8 * 2 * 4})
+
+
 @pytest.mark.parametrize("table_pl, gathered", [
     ((R_, S0), 0),                  # vocab rows over "model"
     ((S1, S0), 16 * 16 * 4),        # and D over "data" (FSDP): gathered
@@ -185,6 +199,7 @@ LAYOUTS = {
     "product_fsdp": (S0, S2),
     "product_experts": (R_, S0),
     "einsum_batch_heads": (S0, S1),
+    "einsum_split_letters": (S0, S1),
     "lookup_vocab_rows": (S0, P),
     "lookup_fsdp": (S0, P),
     "gather_vocab": (S0, P),

@@ -358,6 +358,7 @@ def spmd_rule_values() -> dict:
     x48, x64, scale = rand(4, 8, 48), rand(4, 8, 64), rand(16)
     cache, new = rand(4, 8, 2, 16), rand(4, 2, 16)
     slot = torch.tensor([7, 0, 3, 5])
+    probs, vals = rand(4, 4, 16, 8), rand(4, 4, 8, 4)
 
     cases = {
         "product_column_parallel": (
@@ -372,6 +373,10 @@ def spmd_rule_values() -> dict:
             lambda: torch.einsum("bhqd,bhkd->bhqk", lay(q, S0, S1),
                                  lay(k, S0, S1)),
             torch.einsum("bhqd,bhkd->bhqk", q, k)),
+        "einsum_split_letters": (
+            lambda: torch.einsum("bhqk,bhkd->bhqd", lay(probs, S0, S1),
+                                 lay(vals, S0, Shard(3))),
+            torch.einsum("bhqk,bhkd->bhqd", probs, vals)),
         "lookup_vocab_rows": (
             lambda: lay(table, R_, S0)[lay(tokens, S0, R_)], table[tokens]),
         "lookup_fsdp": (

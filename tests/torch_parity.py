@@ -90,9 +90,15 @@ def mesh_setup(path, names) -> dict:
 # axes. Its layouts and steps are its own. Run in a subprocess: the
 # module sets ``XLA_FLAGS`` to 512 host devices at import.
 REFERENCE_DRYRUN = """
-import json, sys
+import dataclasses, json, sys
 import jax
 from repro.launch import dryrun
+
+layers = int(sys.argv[2])
+if layers:
+    full = dryrun.get_config
+    dryrun.get_config = lambda arch: dataclasses.replace(
+        full(arch), num_layers=layers)
 
 def make_production_mesh(*, multi_pod=False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -104,15 +110,17 @@ def make_production_mesh(*, multi_pod=False):
 
 dryrun.make_production_mesh = make_production_mesh
 recs = {s: dryrun.run_one(sys.argv[1], s, False, save=False)
-        for s in sys.argv[2:]}
+        for s in sys.argv[3:]}
 print(json.dumps(recs, default=str))
 """
 
 
-def dryrun_records(arch: str, shapes) -> tuple:
+def dryrun_records(arch: str, shapes, layers: int = 0) -> tuple:
     """(the JAX package's dry-run records, the port's), by shape, of
-    ``arch`` over the 256-rank mesh; each must be ``ok``. The reference's
+    ``arch`` over the 256-rank mesh (cut to ``layers`` layers in both
+    packages, when given); each must be ``ok``. The reference's
     subprocess runs while the port traces its steps."""
+    import dataclasses
     import json
     import os
     import subprocess
@@ -125,14 +133,20 @@ def dryrun_records(arch: str, shapes) -> tuple:
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
         [src, os.environ.get("PYTHONPATH", "")]))
     env.pop("XLA_FLAGS", None)
+    full = dryrun.get_config
     with subprocess.Popen([sys.executable, "-c", REFERENCE_DRYRUN, arch,
-                           *shapes], env=env, stdout=subprocess.PIPE,
-                          stderr=subprocess.PIPE, text=True) as child:
+                           str(layers), *shapes], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True) as child:
         try:
+            if layers:
+                dryrun.get_config = lambda a: dataclasses.replace(
+                    full(a), num_layers=layers)
             port = {s: dryrun.run_one(arch, s, False, save=False)
                     for s in shapes}
             out, err = child.communicate(timeout=600)
         finally:
+            dryrun.get_config = full
             child.kill()
     assert child.returncode == 0, err[-3000:]
     reference = json.loads(out.strip().splitlines()[-1])
