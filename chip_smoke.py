@@ -12,10 +12,17 @@ Phases, each printing one JSON line:
                 exists), the instances below hd 128 that spill more than
                 their hd-128 twin, and the HMMA/HGMMA (tensor-core)
                 instructions in each library's SASS where ``cuobjdump``
-                exists;
+                exists (K3's library must hold HMMA, the paged kernel's
+                HGMMA: its wgmma prefill kernel), and fails if the wgmma
+                prefill kernel spills;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main paths' full-width shapes: the
-                paged kernel over bf16/f32 pools (K1a, K1b) and over
+                paged kernel over bf16/f32 pools (K1a, K1b: bf16 queries
+                over a bf16 pool at hd 64/128 take its wgmma prefill
+                kernel, counted under ``paged_attention_prefill_wgmma``,
+                the other prefill cases ``paged_attention_prefill``; over
+                an int8/fp8 pool ``..._prefill_quant_wgmma`` and
+                ``..._prefill_quant``) and over
                 int8/fp8 pools (K1c) at qwen3's heads (32 over 8, hd 128),
                 zamba2's (32 over 32, hd 80) and granite-20b's (48 over 1,
                 hd 128), the scorer (K2), flash attention (K3, hd 128 and
@@ -168,7 +175,10 @@ lanes over 288-page rows: each lane's pages in 9 parts, merged), K1b/K1c
 under mixtral's window at its 512-token chunk, K3 at S = 8192 under the
 window and K2 at D = 4096; the times phase times them
 (``paged_attention_decode_mixtral``, ``paged_attention_prefill_swa``,
-``flash_attention_swa``, ``step_score_d4096``), each windowed bound
+``flash_attention_swa``, ``step_score_d4096``; K1c's prefill face there
+over int8 and fp8 pools, ``paged_attention_prefill_{int8,fp8}_swa``, and
+K1b at the same chunk and prefix with no window,
+``paged_attention_prefill_long``, on the times line only), each windowed bound
 counting only the visible (query, key) pairs and the pages that hold
 them. Both phases check and time K1a at decode_seamless's shape and K3 at
 forward_seamless's (``paged_attention_decode_seamless``,
@@ -211,6 +221,16 @@ SCORE_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 throughout
 SSD_TOL = dict(atol=2e-3, rtol=2e-3)
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 SEED = 0
+# K1b's launch counters: the wgmma prefill kernel (bf16 queries over a bf16
+# pool at hd 64/128) and the other float-pool prefill kernels; K1c's prefill
+# face over an int8/fp8 pool the same way
+K1B = ("paged_attention_prefill_wgmma", "paged_attention_prefill")
+K1C_PREFILL = ("paged_attention_prefill_quant_wgmma",
+               "paged_attention_prefill_quant")
+
+
+def k1b_launches(launches: dict, faces=K1B) -> int:
+    return sum(launches[k] for k in faces)
 
 
 def emit(phase: str, **fields) -> None:
@@ -392,6 +412,12 @@ def phase_build(ops):
     if tc != "not available":
         check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
               > 0, "K3 has no tensor-core instruction")
+        check(tc["paged_attention"]["HGMMA"] > 0,
+              "K1b's wgmma prefill kernel has no HGMMA")
+    for name, row in table["paged_attention"].items():
+        if "prefill_wgmma_kernel" in name:
+            check(row["spill_bytes"] <= KNOWN_SPILLS_BEYOND_HD128.get(name, 0),
+                  f"{name} spills {row['spill_bytes']} B")
     return seconds
 
 
@@ -590,7 +616,12 @@ def check_prefill_window(pa, kvq, g, errs):
                            (torch.float32, F32_TOL)):
             args = prefill_inputs(g, C, H, KVH, hd, bp, prefix, nvalid,
                                   dtype)
+            n0 = pa.LAUNCHES["prefill_wgmma"]
             got = pa.paged_attention_prefill(*args, scale=scale, window=W)
+            check(pa.LAUNCHES["prefill_wgmma"] - n0
+                  == (dtype == torch.bfloat16),
+                  f"K1b swa {dtype}: the wgmma prefill kernel ran "
+                  f"{pa.LAUNCHES['prefill_wgmma'] - n0} times")
             want = pa.paged_attention_prefill_plain(*args, scale, W)
             torch.cuda.synchronize()
             key = f"prefill_swa_{str(dtype)[6:]}"
@@ -604,8 +635,11 @@ def check_prefill_window(pa, kvq, g, errs):
             kq, vq, ks, vs = quantize(kvq, kp, vp, kv_dtype)
             bf = torch.bfloat16
             args = (q.to(bf), kq, vq, bt, pl, nv, ok.to(bf), ov.to(bf))
+            n0 = pa.LAUNCHES["prefill_quant_wgmma"]
             got = pa.paged_attention_prefill(*args, scale=scale, window=W,
                                              k_scale=ks, v_scale=vs)
+            check(pa.LAUNCHES["prefill_quant_wgmma"] == n0 + 1,
+                  f"K1c swa {kv_dtype}: not the wgmma prefill kernel")
             want = pa.paged_attention_prefill_plain(*args, scale, W, ks, vs)
             torch.cuda.synchronize()
             key = f"prefill_{kv_dtype}_swa_bfloat16"
@@ -664,6 +698,7 @@ def check_ssd(sd, g, errs, N, shapes, key):
 def phase_kernels(pa, ss, fa, sd, kvq, smd):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
+    before = dict(pa.LAUNCHES)
     # qwen3-4b-thinking (H 32, KVH 8, hd 128): K1a over B = 64 ragged
     # lengths incl. empty, one slot, mid-page and a full 512-slot window;
     # K1b at C in {16, 64} over ragged prefixes, with padding
@@ -746,7 +781,14 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
               "ssd_scan_zamba2")
     check_ssm_decode(smd, g, errs)
     check_ssm_decode(smd, g, errs, N=64, key="ssm_decode_zamba2")
-    emit("kernels", max_abs_err=errs,
+    # the prefill face's three kernels each ran: wgmma (bf16 queries at hd
+    # 64/128), mma.sync (hd 80), f32; over float and int8/fp8 pools
+    prefill = {k: pa.LAUNCHES[k] - before[k]
+               for k in ("prefill_wgmma", "prefill_quant_wgmma", "prefill",
+                         "prefill_quant")}
+    check(all(n > 0 for n in prefill.values()),
+          f"kernels: a prefill kernel never ran: {prefill}")
+    emit("kernels", max_abs_err=errs, prefill_launches=prefill,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
     return errs
@@ -997,10 +1039,11 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
         check(launches["step_score"] == iters,
               "K2 did not launch once per decode iteration")
     if quant:
-        check(launches["paged_attention_prefill_quant"] > 0,
-              "K1c prefill face never launched")
+        check(launches["paged_attention_prefill_quant_wgmma"] > 0
+              and launches["paged_attention_prefill_quant"] == 0,
+              "K1c's prefill face did not run its wgmma kernel")
         check(launches["paged_attention_decode"] == 0
-              and launches["paged_attention_prefill"] == 0,
+              and k1b_launches(launches) == 0,
               "a float-pool kernel ran on a quantized pool")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
@@ -1513,7 +1556,9 @@ def phase_batched(rt, ops, cfg, params, scorer):
     results, launches, wall = (first["results"], first["launches"],
                                first["wall_s"])
     cached = [res.metrics.cached_tokens for res in results]
-    check(launches["paged_attention_prefill"] > 0, "K1b never launched")
+    check(launches["paged_attention_prefill_wgmma"] > 0
+          and launches["paged_attention_prefill"] == 0,
+          "K1b did not run its wgmma prefill kernel")
     check(cached[3] > 0, "no prefix-cache hit on the shared prompt")
     total = sum(res.total_tokens for res in results)
     out = {"requests": 4, "traces": 8, "prompt_tokens": [len(p) for p in
@@ -1606,8 +1651,10 @@ def phase_batched_mixtral(rt, ops, cfg, params, scorer):
         rows["on"] = None
         restore()
     launches = first["launches"]
-    check(launches["paged_attention_prefill"] > 0, "K1b never launched")
-    check(dense["launches"]["paged_attention_prefill"] == 0,
+    check(launches["paged_attention_prefill_wgmma"] > 0
+          and launches["paged_attention_prefill"] == 0,
+          "K1b did not run its wgmma prefill kernel")
+    check(k1b_launches(dense["launches"]) == 0,
           "the dense engine launched K1b")
     k, d = first["results"][0], dense["results"][0]
     tk = [t.output_tokens for t in k.traces]
@@ -2354,6 +2401,16 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     rows["paged_attention_prefill_swa"] = time_prefill(
         pa, kvq, g, 32, 8, 128, 4608 // 16 + 1, C=SWA_CHUNK, prefix=4608,
         window=SWA_WINDOW)
+    # K1c's prefill face at the same chunk over int8 and fp8 pools, and
+    # K1b there with no window: a long prompt's chunked prefill on a model
+    # without one (this line only)
+    for kv_dtype in QUANT:
+        rows[f"paged_attention_prefill_{kv_dtype}_swa"] = time_prefill(
+            pa, kvq, g, 32, 8, 128, 4608 // 16 + 1, kv_dtype, C=SWA_CHUNK,
+            prefix=4608, window=SWA_WINDOW)
+    rows["paged_attention_prefill_long"] = time_prefill(
+        pa, kvq, g, 32, 8, 128, 4608 // 16 + 1, C=SWA_CHUNK, prefix=4608)
+    torch.cuda.empty_cache()
     # K1a at batched_mixtral's decode: 4 lanes of 4201-4216 slots over
     # 288-page rows, 9 parts per lane merged
     rows["paged_attention_decode_mixtral"] = time_decode(
@@ -2872,9 +2929,9 @@ def phase_launch_serve(rt, ops):
           and step["preemptions"] == 0,
           f"launch_serve step: wait {step['wait_s']} pruned "
           f"{step['pruned']} preempt {step['preemptions']}")
-    check(runs["step_online"]["launches"]["paged_attention_prefill"] > 0,
+    check(k1b_launches(runs["step_online"]["launches"]) > 0,
           "launch_serve step_online: K1b never launched")
-    check(runs["step_int8"]["launches"]["paged_attention_prefill_quant"] > 0,
+    check(k1b_launches(runs["step_int8"]["launches"], K1C_PREFILL) > 0,
           "launch_serve step_int8: K1c's prefill face never launched")
     out.update(runs=runs, launches=total)
     emit("launch_serve", **out)
@@ -2909,9 +2966,8 @@ def phase_examples(ops):
     launches = ops.launch_counts()
     out = {"argv": " ".join(EXAMPLE_ARGV), "wall_s": wall,
            "launches": {k: launches[k] for k in (
-               "paged_attention_decode", "paged_attention_prefill",
-               "step_score", "decode_graph_captures",
-               "decode_graph_replays")}}
+               "paged_attention_decode", *K1B, "step_score",
+               "decode_graph_captures", "decode_graph_replays")}}
     for method in ("sc", "step"):
         r = res[method]
         check(r.latency_s > 0 and len(r.traces) == 8,
@@ -2920,9 +2976,9 @@ def phase_examples(ops):
         out[method] = {"answer": r.answer, "latency_s": r.latency_s,
                        "wait_s": r.wait_s, "pruned": r.num_pruned,
                        "preemptions": r.num_preemptions}
-    for name in ("paged_attention_decode", "paged_attention_prefill",
-                 "step_score"):
+    for name in ("paged_attention_decode", "step_score"):
         check(launches[name] > 0, f"examples: {name} never launched")
+    check(k1b_launches(launches) > 0, "examples: K1b never launched")
     emit("examples", **out)
     return out
 
@@ -3421,7 +3477,7 @@ def phase_serve_mesh(rt):
                 check(got["use_kernel"], f"{name}: not on the kernel path")
                 check(lt["paged_attention_decode"] > 0,
                       f"{name}: K1a never launched")
-                check(lt["paged_attention_prefill"] > 0,
+                check(k1b_launches(lt) > 0,
                       f"{name}: K1b never launched in the chunked prefill")
                 check(lt["decode_graph_captures"] == 0
                       and lt["step_score"] == 0,
@@ -3469,7 +3525,7 @@ def phase_serve_mesh(rt):
                     "max_memory_allocated": got["max_memory_allocated"]})
                 if key == "1x2" and job == "full":
                     decode_mesh += lt["paged_attention_decode"]
-                    prefill_mesh += lt["paged_attention_prefill"]
+                    prefill_mesh += lt["paged_attention_prefill_wgmma"]
             entry[job] = {"largest_first_logit": amax, "ranks": rows}
         out["meshes"][key] = entry
     out["tolerances"] = {"score_two_ranks": MESH_SCORE_TOL,
@@ -3477,7 +3533,7 @@ def phase_serve_mesh(rt):
                          "one_rank": "bitwise"}
     emit("serve_mesh", **out)
     return {"paged_attention_decode": decode_mesh,
-            "paged_attention_prefill": prefill_mesh}
+            "paged_attention_prefill_wgmma": prefill_mesh}
 
 
 def main() -> int:
@@ -3610,7 +3666,7 @@ def main() -> int:
                                        "paged_attention_decode"]),
         "paged_attention_prefill": (*paged, "prefill_bfloat16",
                                     batched["launches"][
-                                        "paged_attention_prefill"]),
+                                        "paged_attention_prefill_wgmma"]),
         "step_score": (src + "step_score.cu",
                        "src/repro/kernels/step_score.py:30",
                        "score_bfloat16",
@@ -3626,7 +3682,7 @@ def main() -> int:
             + batched_moe["launches"]["paged_attention_decode"]),
         "paged_attention_prefill_swa": (
             *paged, "prefill_swa_bfloat16",
-            batched_moe["launches"]["paged_attention_prefill"]),
+            batched_moe["launches"]["paged_attention_prefill_wgmma"]),
         "flash_attention_swa": (src + "flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:38",
                                 "flash_swa_bfloat16",
@@ -3673,7 +3729,7 @@ def main() -> int:
             mesh_run["paged_attention_decode"]),
         "paged_attention_prefill_mesh": (
             *paged, "prefill_mesh_bfloat16",
-            mesh_run["paged_attention_prefill"]),
+            mesh_run["paged_attention_prefill_wgmma"]),
         "flash_attention_hd80": (src + "flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:38",
                                  "flash_hd80_bfloat16",
@@ -3691,19 +3747,21 @@ def main() -> int:
     # launch_serve's runs
     lt = launch["launches"]
     for face, count in (("decode", "paged_attention_decode"),
-                        ("prefill", "paged_attention_prefill"),
+                        ("prefill", "paged_attention_prefill_wgmma"),
                         ("decode_int8", "paged_attention_decode_quant"),
-                        ("prefill_int8", "paged_attention_prefill_quant")):
+                        ("prefill_int8",
+                         "paged_attention_prefill_quant_wgmma")):
         meta[f"paged_attention_{face}_launch"] = (
             *paged, f"{face}_launch_bfloat16", lt[count])
     meta["step_score_d256"] = (src + "step_score.cu",
                                "src/repro/kernels/step_score.py:30",
                                "score_d256_bfloat16", lt["step_score"])
     for kv_dtype, run in quant.items():
-        for face in ("decode", "prefill"):
+        for face, count in (("decode", "decode_quant"),
+                            ("prefill", "prefill_quant_wgmma")):
             meta[f"paged_attention_{face}_{kv_dtype}"] = (
                 *paged, f"{face}_{kv_dtype}_bfloat16",
-                run["launches"][f"paged_attention_{face}_quant"])
+                run["launches"][f"paged_attention_{count}"])
     kernels = []
     for name, (source, replaces, err_key, launches) in meta.items():
         t = times[name]

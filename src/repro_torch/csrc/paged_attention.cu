@@ -16,8 +16,8 @@
 // dequantize-then-attend up to f32 rounding order. The chunk's own K/V is
 // exact and never scaled.
 //
-// What bounds it on the H100: bytes. Per (lane, kv head) the kernel reads
-// its live K and V pages once and does 4*hd flops per (query row, key);
+// What bounds the decode face on the H100: bytes. Per (lane, kv head) it
+// reads its live K and V pages once and does 4*hd flops per (query row, key);
 // with the G = 4 query heads of a kv head at decode that is about 4 flops
 // per bf16 pool byte (8 per int8/fp8 byte, plus 4 scale bytes per slot),
 // far below the ~295 flops per byte at which the tensor cores would be
@@ -46,8 +46,47 @@
 //   a part past the lane's length writes (0, -inf, 0), and merge_kernel
 //   combines them by log-sum-exp (an all-empty row stays zero).
 //
-// Prefill with bf16 queries over a bf16/int8/fp8 pool (K1b, K1c prefill):
-//   the tensor-core tile of K3 (attention_tile.cuh). grid (B, KVH,
+// Prefill with bf16 queries over a bf16, int8 or fp8 pool at hd 64 or 128
+//   (K1b, K1c prefill; pages of 8, 16, 32 slots or a multiple of 64):
+//   prefill_wgmma_kernel, the Hopper tile (attention_wgmma.cuh). What
+//   bounds it: operations at a wide
+//   chunk over a long prefix (mixtral's 512-token chunk under its 4096
+//   window: ~3.4e10 flops of visible pairs over ~25 MB, far above the ~295
+//   flops per byte where the tensor cores become the limit), bytes at the
+//   serve's 16-token chunk (a few pages, a few hundred flops per byte of
+//   the K/V it reads; there latency and the launch dominate). So: the
+//   products run on wgmma, the only way to the tensor cores' full rate,
+//   the page loads cost no thread instructions (TMA), and a tile pays a
+//   mask only where the plan says so. grid (B, KVH, ceil(C / T)); a CTA
+//   holds T = rows / G whole chunk tokens, its rows the G query heads of
+//   kv head h for each (64 rows per consumer warpgroup; 128 rows, two
+//   warpgroups, where C*G > 64, so that each K/V tile read serves twice
+//   the rows). One producer warp (its warpgroup gives up its registers
+//   with setmaxnreg) loads the Q tile by TMA, reads the block table 32
+//   entries at a time and keeps a ring of 4 K/V stages full, one TMA box
+//   per page (64 columns of one kv head, 128-byte swizzle), each stage
+//   completing on an mbarrier; the chunk's own K/V comes the same way.
+//   The consumers compute S = Q K^T (m64n64k16, both operands K-major in
+//   shared memory), the online softmax in registers, and O += P V with P
+//   from registers (rounded to bf16) and V read transposed (m64n{hd}k16).
+//   The tiles a CTA visits, and which of them need a mask, follow
+//   TilePlan (kernels/paged_attention.py::prefill_plan): a key tile is
+//   skipped unless a live row sees one of its keys, and masked only on the
+//   causal diagonal, the window's left edge, num_valid and the prefix's
+//   ragged end; an interior tile takes no compare. Each row's chunk token
+//   is computed once. Rows of padded tokens emit zeros at the store. Over
+//   an int8/fp8 pool the TMA warp lands each page's codes (one box of all
+//   hd) and loads their per-slot scales into a raw ring of 4 stages, and
+//   the producer warpgroup's other three warps convert the codes to
+//   swizzled bf16 rows (exact) in 3 K/V stages, the scales beside them,
+//   and load the chunk's own K/V; the consumers fold the scales in per key.
+//   Those conversions, repeated by each CTA of a kv head over the same
+//   pages, bound it there: the K/V tile costs 2 x 64 x hd conversions to
+//   a 64-row softmax's 64 x 64 exponentials per warpgroup.
+//
+// Prefill with bf16 queries at hd 32 or 80, or over other pages (K1b, K1c
+//   prefill): prefill_tc_kernel, the mma.sync tile of K3
+//   (attention_tile.cuh). grid (B, KVH,
 //   ceil(C*G / 64)), 4 warps of 16 rows of the kv head's [C*G, hd] query
 //   tile (row r = chunk token r / G, query head kvh*G + r % G), read and
 //   written in place in the [B, C, H, hd] layout. Key tiles
@@ -71,6 +110,7 @@
 // (the tensor-core tile takes any multiple of 16; the int8/fp8 rows of
 // hd 80 are five 16-byte chunks, so their tile copies run in ragged
 // rounds).
+#include <cuda.h>   // CUtensorMap and its enums (the driver call is looked up)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -81,6 +121,7 @@
 #include <type_traits>
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -144,6 +185,10 @@ struct Args {
   float scale;
   int window;          // sliding window in tokens, -1 for none
   int splits;          // decode: parts of each lane's page range
+  int rows;            // prefill: query rows per CTA of the wgmma kernel
+                       // (64 or 128), 0 for the other prefill kernels
+  int cta_tokens;      // wgmma prefill: chunk tokens per CTA, rows / G
+  int NB;              // pool blocks (an out-of-range TMA coordinate)
 };
 
 // ---------------------------------------------------------------------------
@@ -687,6 +732,566 @@ __global__ void __launch_bounds__(P_NT) prefill_tc_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// prefill, bf16 queries over a bf16/int8/fp8 pool at hd 64/128: warpgroup
+// products
+// ---------------------------------------------------------------------------
+
+// The tiles one CTA visits: the kernel's schedule, the same as
+// kernels/paged_attention.py::prefill_plan. Its rows are the G query heads
+// of kv head h for each of cta_tokens chunk tokens c0..; a row is live if
+// its token is a real one (< num_valid; padded and missing tokens emit
+// zeros). Pool tiles are 64 slots from slot 0, own tiles 64 chunk keys
+// from key 0; a tile is visited if it holds a key visible to some live
+// row, and masked unless every key of it is visible to every live row.
+struct TilePlan {
+  int plen, nv;          // the lane's prefix length and real tokens
+  int c_lo, c_hi;        // the live tokens (c_hi < c_lo: none)
+  int pool0, n_pool;     // pool tiles pool0 .. pool0 + n_pool - 1
+  int own0, n_own;       // then own tiles own0 .. own0 + n_own - 1
+
+  __device__ __forceinline__ int n() const { return n_pool + n_own; }
+  __device__ __forceinline__ bool own(int i) const { return i >= n_pool; }
+  // first key of tile i (a slot of the pool, or a key of the chunk)
+  __device__ __forceinline__ int key0(int i) const {
+    return (own(i) ? own0 + i - n_pool : pool0 + i) * tile::BK;
+  }
+  __device__ __forceinline__ bool masked(int i, int window) const {
+    const int k0 = key0(i);
+    if (own(i))   // all keys at or before the first live token, in window
+      return !(k0 + tile::BK - 1 <= c_lo &&
+               (window < 0 || k0 > c_hi - window));
+    return !(k0 + tile::BK <= plen &&
+             (window < 0 || k0 > plen + c_hi - window));
+  }
+};
+
+__device__ __forceinline__ TilePlan make_plan(const Args& a, int b, int c0) {
+  TilePlan p;
+  p.plen = a.lens[b];
+  p.nv = a.nvalid[b];
+  p.c_lo = c0;
+  p.c_hi = min(min(a.C, p.nv), c0 + a.cta_tokens) - 1;
+  p.pool0 = p.n_pool = p.own0 = p.n_own = 0;
+  if (p.c_hi < p.c_lo || a.window == 0) return p;
+  const int lo = a.window < 0 ? 0 : max(0, p.plen + p.c_lo - a.window + 1);
+  if (lo < p.plen) {
+    p.pool0 = lo / tile::BK;
+    p.n_pool = (p.plen + tile::BK - 1) / tile::BK - p.pool0;
+  }
+  p.own0 = (a.window < 0 ? 0 : max(0, p.c_lo - a.window + 1)) / tile::BK;
+  p.n_own = p.c_hi / tile::BK + 1 - p.own0;
+  return p;
+}
+
+// The TMA tensor maps of one launch (built on the host, passed by value:
+// kernel parameters the TMA unit reads).
+struct PrefillMaps {
+  CUtensorMap q;       // [B, C, KVH, G, hd]: box 64 x G x 1 x cta_tokens x 1
+  CUtensorMap k_pool;  // [NB, page, KVH, hd]: box 64 x 1 x min(page, 64) x 1
+  CUtensorMap v_pool;  //   (int8/fp8 codes: box hd x 1 x min(page, 64) x 1)
+  CUtensorMap own_k;   // [B, C, KVH, hd]: box 64 x 1 x 64 x 1
+  CUtensorMap own_v;
+};
+
+// 16 pool codes -> 16 bf16 values, exactly, with as few conversion
+// instructions (a quarter-rate pipe) as can be: the converters' throughput
+// bounds K1c's wgmma prefill. int8: no I2F; each byte, offset to
+// unsigned, is placed in the mantissa of 2^23 (a float 2^23 + b + 128),
+// 2^23 + 128 is subtracted, and the bf16 is the float's upper half (|b| <=
+// 128: its low half is zero). e4m3: one paired conversion to f16 (exact,
+// every code a normal f16 or zero), then per 16-bit lane the f16's
+// exponent and mantissa shifted under a bf16's, read as a bf16 that is
+// 2^-112 times the value (bias 15 against 127; zero stays zero), times
+// 2^112 on the bf16 pipe.
+template <typename KT>
+__device__ __forceinline__ void codes_to_bf16_fast(const uint4& r, uint4& lo,
+                                                   uint4& hi) {
+  if constexpr (std::is_same<KT, fp8>::value) {
+    const __nv_fp8x2_storage_t* x =
+        reinterpret_cast<const __nv_fp8x2_storage_t*>(&r);
+    const __nv_bfloat162 gap = __float2bfloat162_rn(5.192296858534828e33f);
+    uint32_t out[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(x[i], __NV_E4M3);
+      const uint32_t f16 = (uint32_t)h.x | ((uint32_t)h.y << 16);
+      uint32_t b = ((f16 >> 3) & 0x0FFF0FFFu) | (f16 & 0x80008000u);
+      __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&b), gap);
+      out[i] = *reinterpret_cast<uint32_t*>(&v);
+    }
+    lo = make_uint4(out[0], out[1], out[2], out[3]);
+    hi = make_uint4(out[4], out[5], out[6], out[7]);
+  } else {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    uint32_t out[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + k)) -
+               8388736.f;   // 2^23 + 128
+      out[2 * i] = __byte_perm(__float_as_uint(f[0]),
+                               __float_as_uint(f[1]), 0x7632);
+      out[2 * i + 1] = __byte_perm(__float_as_uint(f[2]),
+                                   __float_as_uint(f[3]), 0x7632);
+    }
+    lo = make_uint4(out[0], out[1], out[2], out[3]);
+    hi = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
+// NWG consumer warpgroups of 64 query rows each, then the producer
+// warpgroup: one warp issues the TMA loads; over an int8/fp8 pool its
+// other three warps convert the codes to bf16 and write the stages.
+template <int HD, int NWG, typename KT>
+struct Wg {
+  static constexpr bool QUANT = sizeof(KT) == 1;
+  static constexpr int R = 64 * NWG;                 // query rows per CTA
+  static constexpr int NT = 128 * (NWG + 1);
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  static constexpr int BLOCKS = HD / 64;             // 64-column blocks
+  static constexpr uint32_t Q_BLOCK = R * 128;       // one block of Q
+  static constexpr uint32_t KV_BLOCK = tile::BK * 128;
+  static constexpr uint32_t KV_BYTES = BLOCKS * KV_BLOCK;   // a K or V tile
+  // int8/fp8: a ring of 4 raw stages (K codes, V codes, their scales per
+  // tile) keeps the page loads in flight, 3 bf16 stages (and their scales:
+  // 64 k, then 64 v) behind it
+  static constexpr int STAGES = QUANT ? 3 : 4;
+  static constexpr int RAW_STAGES = 4;
+  static constexpr uint32_t CODES = tile::BK * HD;   // a tile's codes
+  static constexpr uint32_t SCALES = 2 * tile::BK * 4;
+  static constexpr uint32_t RAW_BYTES = 2 * CODES + SCALES;
+  static constexpr size_t SMEM =   // + 1024: room to align the blocks
+      1024 + BLOCKS * Q_BLOCK + 2 * STAGES * KV_BYTES +
+      (QUANT ? STAGES * SCALES + RAW_STAGES * RAW_BYTES : 0);
+  static constexpr int PRODUCER_REGS = QUANT ? 56 : 40;
+  // Every thread's registers at entry: 65536 / (NT * MIN_BLOCKS), rounded
+  // down to 8 (168, 128). The producer warpgroup gives back what the
+  // consumers take: 128 * PRODUCER_REGS + 128 * NWG * CONSUMER_REGS may
+  // not exceed NT times that, or setmaxnreg.inc waits for ever. (ptxas
+  // rounds NT up to whole warpgroups here: a lone fifth producer warp
+  // leaves 128 at entry.)
+  static constexpr int CONSUMER_REGS =
+      QUANT ? (NWG == 1 ? 200 : 224) : (NWG == 1 ? 216 : 232);
+  static constexpr int CONVERTERS = 96;   // threads of warps 1-3
+  static_assert(128 * PRODUCER_REGS + 128 * NWG * CONSUMER_REGS <=
+                    NT * (65536 / (NT * MIN_BLOCKS) / 8 * 8),
+                "setmaxnreg: the consumers would take more than is given");
+};
+
+// shared-memory addresses of the barriers, 8 bytes apart per stage
+struct Bars {
+  uint32_t q;
+  uint32_t k, v, e;       // per stage: K written, V written, stage free
+  uint32_t raw, raw_e;    // int8/fp8, per raw stage: landed, free
+};
+
+// Shared-memory layout: 1024-byte aligned Q blocks, then the K stages, the
+// V stages, and for an int8/fp8 pool the stages' scales and the raw ring.
+template <int HD, int NWG, typename KT>
+struct Smem {
+  using W = Wg<HD, NWG, KT>;
+  uint32_t q, k, v, scl, raw;
+  unsigned char* base;   // the same blocks, as a generic pointer
+  __device__ __forceinline__ Smem(unsigned char* raw_ptr) {
+    const uint32_t at = wg::smem_u32(raw_ptr);
+    q = (at + 1023) & ~1023u;
+    base = raw_ptr + (q - at);
+    k = q + W::BLOCKS * W::Q_BLOCK;
+    v = k + W::STAGES * W::KV_BYTES;
+    scl = v + W::STAGES * W::KV_BYTES;
+    raw = scl + W::STAGES * W::SCALES;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* ptr(uint32_t addr) const {
+    return reinterpret_cast<T*>(base + (addr - q));
+  }
+};
+
+// The block ids of a lane's pool pages, read from the block table 32
+// entries at a time (one per lane of the warp), the next 32 in flight while
+// these serve; a page past the table or the prefix reads as NB, out of the
+// pool's range (a TMA box there is zeros).
+struct TableWindow {
+  const int* bt;
+  int bp, live_pages, NB, lane;
+  int win = -2, cur = 0, nxt = 0;
+  __device__ __forceinline__ int ids(int w) const {
+    const int pi = 32 * w + lane;
+    return pi < bp && pi < live_pages ? __ldg(bt + pi) : NB;
+  }
+  // the block of page pi; every lane calls it, with pages of one window
+  __device__ __forceinline__ int block(int first_page, int pi) {
+    const int w = first_page / 32;
+    if (w != win) {                       // warp-uniform
+      cur = w == win + 1 ? nxt : ids(w);
+      nxt = ids(w + 1);
+      win = w;
+    }
+    return __shfl_sync(0xffffffffu, cur, pi - 32 * w);
+  }
+};
+
+// One int8/fp8 pool tile i into raw stage i % RAW_STAGES, by the TMA warp:
+// its pages' codes (one box per page, all of hd; lane i < 8 K box i, lane
+// 16 + i V box i) and their per-slot scales (lanes: keys lane, lane + 32).
+template <int HD, int NWG, typename KT>
+__device__ __forceinline__ void load_codes(const PrefillMaps& maps,
+                                           const Args& a, int h,
+                                           const TilePlan& p, int i,
+                                           TableWindow& tw,
+                                           const Smem<HD, NWG, KT>& sm,
+                                           const Bars& bar) {
+  using W = Wg<HD, NWG, KT>;
+  const int lane = threadIdx.x & 31, idx = lane & 15;
+  const bool is_k = lane < 16;
+  const int bs = min(a.page, tile::BK);
+  const int r = i % W::RAW_STAGES;
+  wg::mbar_wait(bar.raw_e + 8 * r, ((i / W::RAW_STAGES) & 1) ^ 1);
+  const int k0 = p.key0(i);
+  const uint32_t raw = sm.raw + r * W::RAW_BYTES;
+  const int box = k0 + idx * bs;           // this lane's box
+  const int blk = tw.block(k0 / a.page, box / a.page);
+  // the scales: [NB, page, KVH] f32
+  float* scl = sm.template ptr<float>(raw + 2 * W::CODES);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int key = lane + 32 * u, slot = k0 + key;
+    const int kb = tw.block(k0 / a.page, slot / a.page);
+    const bool ok = kb >= 0 && kb < a.NB;
+    const size_t at =
+        ok ? ((size_t)kb * a.page + slot % a.page) * a.KVH + h : 0;
+    scl[key] = ok ? __ldg(a.k_scale + at) : 0.f;
+    scl[tile::BK + key] = ok ? __ldg(a.v_scale + at) : 0.f;
+  }
+  if (lane == 0) wg::mbar_expect(bar.raw + 8 * r, 2 * W::CODES);
+  __syncwarp();
+  if (idx < tile::BK / bs)
+    wg::tma_load(raw + (is_k ? 0 : W::CODES) + idx * bs * HD,
+                 is_k ? &maps.k_pool : &maps.v_pool, bar.raw + 8 * r, 0, h,
+                 box % a.page, blk);
+  if (lane != 0) wg::mbar_arrive(bar.raw + 8 * r);   // scales written
+}
+
+// The Q tile, by one thread of the producer warpgroup, first: it needs no
+// device length, so it is in flight while they are read.
+template <int HD, int NWG, typename KT>
+__device__ __forceinline__ void load_q(const PrefillMaps& maps, const Args& a,
+                                       int b, int h, int c0,
+                                       const Smem<HD, NWG, KT>& sm,
+                                       const Bars& bar) {
+  using W = Wg<HD, NWG, KT>;
+  wg::prefetch_map(&maps.q);
+  wg::prefetch_map(&maps.k_pool);
+  wg::prefetch_map(&maps.v_pool);
+  wg::prefetch_map(&maps.own_k);
+  wg::prefetch_map(&maps.own_v);
+  wg::mbar_expect(bar.q, W::BLOCKS * a.cta_tokens * a.G * 128);
+#pragma unroll
+  for (int j = 0; j < W::BLOCKS; ++j)
+    wg::tma_load(sm.q + j * W::Q_BLOCK, &maps.q, bar.q, j * 64, 0, h, c0, b);
+}
+
+// The TMA warp. Over a bf16 pool: the visited tiles, the pool's pages and
+// the chunk's own K/V, straight into the ring of K/V stages; lane i < 16
+// issues K box i of a tile, lane 16 + i V box i. Over an int8/fp8 pool:
+// the pool tiles' codes and scales into the raw ring, for the converters.
+// A tile's pages share one window of the table.
+template <int HD, int NWG, typename KT>
+__device__ __forceinline__ void produce(const PrefillMaps& maps, const Args& a,
+                                        int b, int h, int c0,
+                                        const Smem<HD, NWG, KT>& sm,
+                                        const Bars& bar) {
+  using W = Wg<HD, NWG, KT>;
+  const int lane = threadIdx.x & 31;
+  const TilePlan p = make_plan(a, b, c0);
+  const int bs = min(a.page, tile::BK);        // slots per pool box
+  const bool is_k = lane < 16;
+  const int idx = lane & 15;
+  TableWindow tw{a.bt + (size_t)b * a.bp, a.bp,
+                 (p.plen + a.page - 1) / a.page, a.NB, lane};
+  if constexpr (W::QUANT) {
+    for (int i = 0; i < p.n_pool; ++i)
+      load_codes<HD, NWG, KT>(maps, a, h, p, i, tw, sm, bar);
+    return;
+  }
+  const int j = idx % W::BLOCKS, pb = idx / W::BLOCKS;
+  const int boxes = (tile::BK / bs) * W::BLOCKS;   // per pool tile, <= 16
+  for (int i = 0; i < p.n(); ++i) {
+    const int s = i % W::STAGES;
+    wg::mbar_wait(bar.e + 8 * s, ((i / W::STAGES) & 1) ^ 1);
+    const int k0 = p.key0(i);
+    const uint32_t bk = bar.k + 8 * s, bv = bar.v + 8 * s;
+    const uint32_t dst =
+        (is_k ? sm.k : sm.v) + s * W::KV_BYTES + j * W::KV_BLOCK;
+    if (lane == 0) {
+      wg::mbar_expect(bk, W::KV_BYTES);
+      wg::mbar_expect(bv, W::KV_BYTES);
+    }
+    if (p.own(i)) {
+      __syncwarp();
+      if (idx < W::BLOCKS)
+        wg::tma_load(dst, is_k ? &maps.own_k : &maps.own_v, is_k ? bk : bv,
+                     j * 64, h, k0, b);
+    } else {
+      const int slot = k0 + pb * bs;    // this lane's box: its first slot
+      const int blk = tw.block(k0 / a.page, slot / a.page);
+      __syncwarp();
+      if (idx < boxes)
+        wg::tma_load(dst + pb * bs * 128, is_k ? &maps.k_pool : &maps.v_pool,
+                     is_k ? bk : bv, j * 64, h, slot % a.page, blk);
+    }
+  }
+}
+
+// The converters (int8/fp8 pool; warps 1-3 of the producer warpgroup)
+// write every stage: a pool tile's codes, once landed in the raw ring, as
+// swizzled bf16 rows (exact for int8 and e4m3) with its scales beside
+// them; an own tile by TMA, thread 0 expecting its bytes. A stage is full
+// when all 96 threads have arrived.
+template <int HD, int NWG, typename KT>
+__device__ __forceinline__ void convert(const PrefillMaps& maps, const Args& a,
+                                        int b, int h, int c0,
+                                        const Smem<HD, NWG, KT>& sm,
+                                        const Bars& bar) {
+  using W = Wg<HD, NWG, KT>;
+  const int t = threadIdx.x - 128 * NWG - 32;   // 0 .. 95
+  const TilePlan p = make_plan(a, b, c0);
+  constexpr int CPR = HD / 16;                  // 16-code chunks per key
+  for (int i = 0; i < p.n(); ++i) {
+    const int s = i % W::STAGES;
+    const uint32_t bk = bar.k + 8 * s, bv = bar.v + 8 * s;
+    wg::mbar_wait(bar.e + 8 * s, ((i / W::STAGES) & 1) ^ 1);
+    if (p.own(i)) {
+      if (t == 0) {
+        const int k0 = p.key0(i);
+        wg::mbar_expect(bk, W::KV_BYTES);
+        wg::mbar_expect(bv, W::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < W::BLOCKS; ++j) {
+          wg::tma_load(sm.k + s * W::KV_BYTES + j * W::KV_BLOCK, &maps.own_k,
+                       bk, j * 64, h, k0, b);
+          wg::tma_load(sm.v + s * W::KV_BYTES + j * W::KV_BLOCK, &maps.own_v,
+                       bv, j * 64, h, k0, b);
+        }
+      } else {
+        wg::mbar_arrive(bk);
+        wg::mbar_arrive(bv);
+      }
+      continue;
+    }
+    const int r = i % W::RAW_STAGES;
+    wg::mbar_wait(bar.raw + 8 * r, (i / W::RAW_STAGES) & 1);
+    const uint32_t raw = sm.raw + r * W::RAW_BYTES;
+    const float* rs = sm.template ptr<const float>(raw + 2 * W::CODES);
+    float* ss = sm.template ptr<float>(sm.scl + s * W::SCALES);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {   // K, then V
+      const uint8_t* codes =
+          sm.template ptr<const uint8_t>(raw + half * W::CODES);
+      unsigned char* rows = sm.template ptr<unsigned char>(
+          (half ? sm.v : sm.k) + s * W::KV_BYTES);
+#pragma unroll 2
+      for (int g = t; g < tile::BK * CPR; g += W::CONVERTERS) {
+        const int key = g / CPR, c = g % CPR;   // columns 16c .. 16c + 15
+        uint4 lo, hi;
+        codes_to_bf16_fast<KT>(*reinterpret_cast<const uint4*>(codes + g * 16),
+                               lo, hi);
+        unsigned char* row = rows + (c >> 2) * W::KV_BLOCK + key * 128;
+        const int chunk = 2 * (c & 3);
+        *reinterpret_cast<uint4*>(row + ((chunk ^ (key & 7)) << 4)) = lo;
+        *reinterpret_cast<uint4*>(row + (((chunk + 1) ^ (key & 7)) << 4)) =
+            hi;
+      }
+      for (int k = t; k < tile::BK; k += W::CONVERTERS)
+        ss[half * tile::BK + k] = rs[half * tile::BK + k];
+      // the rows are read by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg::mbar_arrive(half ? bv : bk);
+    }
+    wg::mbar_arrive(bar.raw_e + 8 * r);
+  }
+}
+
+// A consumer warpgroup: 64 query rows, S = Q K^T and O += P V on the
+// tensor cores per tile, the online softmax in registers; the mask only on
+// the tiles the plan marks. Over an int8/fp8 pool a pool tile's scores are
+// scaled per key, and p is scaled per key after l (as prefill_tc_kernel).
+template <int HD, int NWG, typename KT>
+__device__ __forceinline__ void consume(const Args& a, int b, int h, int c0,
+                                        const Smem<HD, NWG, KT>& sm,
+                                        const Bars& bar) {
+  using W = Wg<HD, NWG, KT>;
+  const int grp = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const TilePlan p = make_plan(a, b, c0);
+  // this thread's two rows (lane / 4 and lane / 4 + 8 of its warp's 16):
+  // key k of a pool tile is visible iff lo_pool < k < hi_pool, of an own
+  // tile iff lo_own < k < hi_own (an empty range for a row that is not
+  // live)
+  int lo_pool[2], hi_pool[2], lo_own[2], hi_own[2];
+  bool live[2];
+  bf16* dst[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = grp * 64 + warp * 16 + (lane >> 2) + 8 * r;
+    const int t = row / a.G, c = c0 + t;   // the row's chunk token
+    const bool real = t < a.cta_tokens && c < a.C;
+    live[r] = real && c < p.nv;
+    dst[r] = real ? (bf16*)a.out + (((size_t)b * a.C + c) * a.KVH * a.G +
+                                    h * a.G + row % a.G) * HD
+                  : nullptr;
+    hi_pool[r] = live[r] ? p.plen : 0;
+    lo_pool[r] = a.window < 0 ? -1 : p.plen + c - a.window;
+    hi_own[r] = live[r] ? c + 1 : 0;
+    lo_own[r] = a.window < 0 ? -1 : c - a.window;
+  }
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float scale_log2 = a.scale * tile::LOG2E;
+  const uint32_t q_rows = sm.q + grp * 64 * 128;
+
+  wg::mbar_wait(bar.q, 0);
+  for (int i = 0; i < p.n(); ++i) {
+    const int s = i % W::STAGES;
+    const uint32_t phase = (i / W::STAGES) & 1;
+    const uint32_t kt = sm.k + s * W::KV_BYTES, vt = sm.v + s * W::KV_BYTES;
+    const bool own = p.own(i);
+    // this thread's columns of the tile: 8n + 2 (lane % 4) + e
+    const int col = (lane & 3) * 2;
+    const float* scl = sm.template ptr<const float>(sm.scl + s * W::SCALES);
+    float sc[tile::BK / 8][4];
+    wg::mbar_wait(bar.k + 8 * s, phase);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wg::mma_ss_n64(sc, wg::desc_k(q_rows, kk, W::Q_BLOCK),
+                     wg::desc_k(kt, kk, W::KV_BLOCK), kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(sc);
+    if (W::QUANT && !own) {   // s_j = k_scale_j * (q . code_j)
+#pragma unroll
+      for (int n = 0; n < tile::BK / 8; ++n) {
+        const float2 ks =
+            *reinterpret_cast<const float2*>(scl + n * 8 + col);
+        sc[n][0] *= ks.x;
+        sc[n][1] *= ks.y;
+        sc[n][2] *= ks.x;
+        sc[n][3] *= ks.y;
+      }
+    }
+    if (p.masked(i, a.window)) {
+      const int k0 = p.key0(i) + col;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lo = own ? lo_own[r] : lo_pool[r];
+        const int hi = own ? hi_own[r] : hi_pool[r];
+#pragma unroll
+        for (int n = 0; n < tile::BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + n * 8 + e;
+            if (!(key > lo && key < hi)) sc[n][2 * r + e] = NEG_INF;
+          }
+      }
+    }
+    tile::online_softmax<HD>(sc, o, m, l, scale_log2);
+    wg::mbar_wait(bar.v + 8 * s, phase);
+    if (W::QUANT && !own) {   // p'_j = p_j * v_scale_j, after l
+#pragma unroll
+      for (int n = 0; n < tile::BK / 8; ++n) {
+        const float2 vs =
+            *reinterpret_cast<const float2*>(scl + tile::BK + n * 8 + col);
+        sc[n][0] *= vs.x;
+        sc[n][1] *= vs.y;
+        sc[n][2] *= vs.x;
+        sc[n][3] *= vs.y;
+      }
+    }
+    uint32_t pf[tile::BK / 16][4];   // P in bf16, as the A registers
+#pragma unroll
+    for (int kk = 0; kk < tile::BK / 16; ++kk) {
+      pf[kk][0] = tile::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+      pf[kk][1] = tile::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+      pf[kk][2] = tile::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pf[kk][3] = tile::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < tile::BK / 16; ++kk)
+      wg::mma_rs<HD>(o, pf[kk], wg::desc_mn(vt, kk, W::KV_BLOCK));
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(bar.e + 8 * s);   // the stage is free
+  }
+
+  tile::finalize<HD>(o, l);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (live[r]) continue;   // a padded token's row emits zeros
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[n][2 * r] = o[n][2 * r + 1] = 0.f;
+  }
+  tile::store_rows<HD>(o, [&](int rr) -> bf16* {
+    return rr < 8 ? dst[0] : dst[1];   // rr is lane / 4 (+ 8)
+  });
+}
+
+template <int HD, int NWG, typename KT>
+__global__ void __launch_bounds__(Wg<HD, NWG, KT>::NT,
+                                  Wg<HD, NWG, KT>::MIN_BLOCKS)
+    prefill_wgmma_kernel(__grid_constant__ const PrefillMaps maps,
+                         const Args a) {
+  using W = Wg<HD, NWG, KT>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * W::STAGES +
+                                        2 * W::RAW_STAGES];
+  const Smem<HD, NWG, KT> sm(wg_smem);
+  const uint32_t b0 = wg::smem_u32(bars);
+  const Bars bar{b0, b0 + 8, b0 + 8 + 8 * W::STAGES, b0 + 8 + 16 * W::STAGES,
+                 b0 + 8 + 24 * W::STAGES,
+                 b0 + 8 + 24 * W::STAGES + 8 * W::RAW_STAGES};
+  if (threadIdx.x == 0) {
+    // a stage is written by the TMA warp's one expecting arrival, or over
+    // an int8/fp8 pool by the converters' 96
+    const int writers = W::QUANT ? W::CONVERTERS : 1;
+    wg::mbar_init(bar.q, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      wg::mbar_init(bar.k + 8 * s, writers);
+      wg::mbar_init(bar.v + 8 * s, writers);
+      wg::mbar_init(bar.e + 8 * s, 4 * NWG);   // lane 0 of each consumer warp
+    }
+    for (int r = 0; r < W::RAW_STAGES; ++r) {
+      wg::mbar_init(bar.raw + 8 * r, 32);      // the TMA warp's lanes
+      wg::mbar_init(bar.raw_e + 8 * r, W::CONVERTERS);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  const int b = blockIdx.x, h = blockIdx.y, c0 = blockIdx.z * a.cta_tokens;
+  // one branch per role, to the end (setmaxnreg needs the roles apart)
+  if (threadIdx.x >= 128 * NWG) {
+    wg::regs_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG)
+      load_q<HD, NWG, KT>(maps, a, b, h, c0, sm, bar);
+    if (threadIdx.x < 128 * NWG + 32)
+      produce<HD, NWG, KT>(maps, a, b, h, c0, sm, bar);
+    else if constexpr (W::QUANT)
+      convert<HD, NWG, KT>(maps, a, b, h, c0, sm, bar);
+  } else {
+    wg::regs_inc<W::CONSUMER_REGS>();
+    consume<HD, NWG, KT>(a, b, h, c0, sm, bar);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // prefill, f32 queries or an f32 pool: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -878,8 +1483,123 @@ int launch_decode(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up once through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first; `strides` in elements, of
+// each dim above the innermost) and boxes of `box`; out-of-bounds elements
+// read as zeros. bf16 rows take the 128-byte swizzle; int8/fp8 codes land
+// as they are, as bytes.
+bool tensor_map(CUtensorMap* map, bool codes, const void* base, int rank,
+                const uint64_t* dims, const uint64_t* strides,
+                const uint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const size_t elem = codes ? 1 : sizeof(bf16);
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t bd[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bd[i] = box[i];
+    es[i] = 1;
+  }
+  for (int i = 0; i + 1 < rank; ++i) gs[i] = strides[i] * elem;
+  return encode(map,
+                codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank, const_cast<void*>(base), gd, gs, bd, es,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                codes ? CU_TENSOR_MAP_SWIZZLE_NONE
+                      : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int NWG, typename KT>
+int launch_wgmma_grid(const PrefillMaps& maps, const Args& a, int B,
+                      cudaStream_t stream) {
+  using W = Wg<HD, NWG, KT>;
+  cudaFuncSetAttribute(prefill_wgmma_kernel<HD, NWG, KT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)W::SMEM);
+  const dim3 grid(B, a.KVH, (a.C + a.cta_tokens - 1) / a.cta_tokens);
+  prefill_wgmma_kernel<HD, NWG, KT><<<grid, W::NT, W::SMEM, stream>>>(maps,
+                                                                      a);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma prefill: its tensor maps over q, the pools and the own K/V,
+// then the launch at `rows` query rows per CTA.
+template <int HD, typename KT>
+int launch_prefill_wgmma(const Args& a, int B, cudaStream_t stream) {
+  constexpr bool codes = sizeof(KT) == 1;
+  const uint64_t G = a.G, KVH = a.KVH, C = a.C, H = KVH * G;
+  const uint64_t page = a.page;
+  if ((a.rows != 64 && a.rows != 128) || a.cta_tokens < 1 ||
+      a.cta_tokens * a.G > a.rows || a.page < 8 ||
+      (tile::BK % a.page != 0 && a.page % tile::BK != 0))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t bs = min(a.page, tile::BK);
+  PrefillMaps maps;
+  const uint64_t qd[5] = {HD, G, KVH, C, (uint64_t)B};
+  const uint64_t qs[4] = {HD, G * HD, H * HD, C * H * HD};
+  const uint32_t qb[5] = {64, (uint32_t)G, 1, (uint32_t)a.cta_tokens, 1};
+  const uint64_t pd[4] = {HD, KVH, page, (uint64_t)a.NB};
+  const uint64_t ps[3] = {HD, KVH * HD, page * KVH * HD};
+  const uint32_t pb[4] = {codes ? HD : 64, 1, bs, 1};
+  const uint64_t od[4] = {HD, KVH, C, (uint64_t)B};
+  const uint64_t os[3] = {HD, KVH * HD, C * KVH * HD};
+  const uint32_t ob[4] = {64, 1, tile::BK, 1};
+  if (!tensor_map(&maps.q, false, a.q, 5, qd, qs, qb) ||
+      !tensor_map(&maps.k_pool, codes, a.k_pool, 4, pd, ps, pb) ||
+      !tensor_map(&maps.v_pool, codes, a.v_pool, 4, pd, ps, pb) ||
+      !tensor_map(&maps.own_k, false, a.own_k, 4, od, os, ob) ||
+      !tensor_map(&maps.own_v, false, a.own_v, 4, od, os, ob))
+    return (int)cudaErrorInvalidValue;
+  return a.rows == 128 ? launch_wgmma_grid<HD, 2, KT>(maps, a, B, stream)
+                       : launch_wgmma_grid<HD, 1, KT>(maps, a, B, stream);
+}
+
+// The prefill kernels, by case. `rows` is the host's route
+// (kernels/paged_attention.py::prefill_rows), from shapes and dtypes only:
+//   rows 64 or 128: bf16 queries over a bf16, int8 or fp8 pool at hd 64 or
+//     128, pages of 8, 16 or 32 slots or a multiple of 64, G <= rows:
+//     prefill_wgmma_kernel (TMA page loads, wgmma; int8/fp8 codes
+//     converted to bf16 in shared memory);
+//   rows 0, bf16 queries otherwise (hd 32 or 80, a page under 8 slots or
+//     of another size, G > 128): prefill_tc_kernel;
+//   rows 0, f32 queries or an f32 pool: prefill_f32_kernel.
 template <int HD, typename QT, typename KT>
 int launch_prefill(const Args& a, int B, cudaStream_t stream) {
+  constexpr bool WGMMA = std::is_same<QT, bf16>::value &&
+                         !std::is_same<KT, float>::value &&
+                         (HD == 64 || HD == 128);
+  if (a.rows != 0) {
+    if constexpr (WGMMA) return launch_prefill_wgmma<HD, KT>(a, B, stream);
+    return (int)cudaErrorInvalidValue;
+  }
   constexpr bool TC = std::is_same<QT, bf16>::value &&
                       !std::is_same<KT, float>::value;
   if constexpr (TC) {
@@ -933,23 +1653,29 @@ int dispatch_dtypes(const Args& a, int B, int q_bf16, int kv_kind,
 // 2 int8, 3 fp8 e4m3; the two quantized kinds need k_scale/v_scale.
 // nvalid/own_k/own_v null = decode. splits > 1 (decode only) needs the
 // scratch part_o [splits, B*KVH*CG, hd] and part_ml [2, splits, B*KVH*CG]
-// f32; a second small kernel merges them into out.
+// f32; a second small kernel merges them into out. rows (prefill only):
+// 64 or 128 takes the wgmma kernel at that many query rows per CTA, 0 the
+// others (see launch_prefill); NB: the pool's blocks.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* lens, const void* nvalid,
     const void* own_k, const void* own_v, const void* k_scale,
     const void* v_scale, void* out, void* part_o, void* part_ml, int B,
     int KVH, int CG, int C, int G, int bp, int page, int hd, int q_bf16,
-    int kv_kind, float scale, int window, int splits, void* stream) {
+    int kv_kind, float scale, int window, int splits, int rows, int NB,
+    void* stream) {
   if ((kv_kind >= 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || (splits > 1 && (own_k != nullptr || part_o == nullptr ||
                                     part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (rows != 0 && (own_k == nullptr || G < 1 || rows < G))
+    return (int)cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, (const int*)block_tables, (const int*)lens,
          (const int*)nvalid, own_k, own_v, (const float*)k_scale,
          (const float*)v_scale, out, (float*)part_o, (float*)part_ml, KVH,
-         CG, C, G, bp, page, scale, window, splits};
+         CG, C, G, bp, page, scale, window, splits, rows,
+         rows == 0 ? 0 : rows / G, NB};
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 32: return dispatch_dtypes<32>(a, B, q_bf16, kv_kind, st);

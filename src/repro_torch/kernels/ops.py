@@ -37,6 +37,9 @@ _KERNELS = {
     "paged_attention_prefill": (_paged.LAUNCHES, "prefill"),
     "paged_attention_decode_quant": (_paged.LAUNCHES, "decode_quant"),
     "paged_attention_prefill_quant": (_paged.LAUNCHES, "prefill_quant"),
+    "paged_attention_prefill_wgmma": (_paged.LAUNCHES, "prefill_wgmma"),
+    "paged_attention_prefill_quant_wgmma": (_paged.LAUNCHES,
+                                            "prefill_quant_wgmma"),
     "step_score": (_score.LAUNCHES, "step_score"),
     "flash_attention": (_flash.LAUNCHES, "flash"),
     "ssd_scan": (_ssd.LAUNCHES, "ssd_scan"),

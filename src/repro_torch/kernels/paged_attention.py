@@ -24,8 +24,15 @@ The decode kernel may cut each lane's page range into parts whose
 partial softmax states are merged by log-sum-exp (split-K);
 :func:`split_count` picks the number of parts from shapes alone, and
 :func:`paged_attention_split_plain` is the same algebra in PyTorch. On
-the tensor-core prefill route the kernel rounds P to bf16 before P.V,
+the tensor-core prefill routes the kernel rounds P to bf16 before P.V,
 as :func:`tiled_softmax_pv` does with ``p_dtype=torch.bfloat16``.
+
+The prefill face has three kernels. bf16 queries over a bf16, int8 or fp8
+pool at hd 64 or 128 take the Hopper kernel (wgmma products, TMA page
+loads) where :func:`prefill_rows` gives it a number of query rows per
+CTA; its schedule, which key tiles each CTA visits and which of them need
+a mask, is :func:`prefill_plan`. Other bf16 queries take the mma.sync
+tensor-core kernel, f32 queries or an f32 pool the f32 kernel.
 
 Numerics contract (shared by the kernel, the plain version and the dense
 layer path): f32 scores, softmax and P.V; a row with no visible key
@@ -35,7 +42,10 @@ On a CPU tensor each wrapper runs the plain version (what the tests and a
 CPU engine with ``use_kernel=True`` reach). On a CUDA tensor it launches
 the kernel or raises: there is no fallback. Each kernel launch adds one
 to ``LAUNCHES[face]`` (``decode``/``prefill`` over a float pool,
-``decode_quant``/``prefill_quant`` over a quantized one).
+``decode_quant``/``prefill_quant`` over a quantized one), except that a
+launch of the wgmma prefill kernel adds one to ``prefill_wgmma`` (or
+``prefill_quant_wgmma``) instead, so a run shows which prefill kernel
+ran.
 """
 from __future__ import annotations
 
@@ -48,14 +58,18 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 LAUNCHES = {"decode": 0, "prefill": 0, "decode_quant": 0,
-            "prefill_quant": 0}
+            "prefill_quant": 0, "prefill_wgmma": 0, "prefill_quant_wgmma": 0}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 # decode split-K: aim at this many CTAs (4 per SM of the H100's 132) and
 # give each part at least MIN_SPLIT_PAGES pages of the block table
 TARGET_CTAS = 4 * 132
 MIN_SPLIT_PAGES = 32
-# the head dims the kernel is built for (csrc/paged_attention.cu)
+# the head dims the kernel is built for (csrc/paged_attention.cu), and
+# those of its wgmma prefill kernel
 HEAD_DIMS = (32, 64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+# keys per tile of the prefill kernels
+PREFILL_BLOCK = 64
 # pool dtype -> the kernel's pool-type code (csrc/paged_attention.cu)
 _POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
@@ -156,12 +170,28 @@ def paged_attention_prefill_plain(q: torch.Tensor, k_pool: torch.Tensor,
     Returns [B, C, H, hd] in q's dtype; padded queries emit zeros."""
     B, C, H, hd = q.shape
     KVH = k_pool.shape[2]
-    dev = q.device
     kc = gather_kv(k_pool, block_tables, k_scale)
     vc = gather_kv(v_pool, block_tables, v_scale)
-    S = kc.shape[1]
     keys = torch.cat([kc.float(), own_k.float()], dim=1)
     vals = torch.cat([vc.float(), own_v.float()], dim=1)
+    mask = prefill_mask(prefix_lens, num_valid, C, kc.shape[1], window)
+    qg = q.reshape(B, C, KVH, H // KVH, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), keys) * scale
+    out = masked_softmax_pv(scores, mask[:, None, None], vals,
+                            "bkgqs,bskh->bqkgh")
+    return out.to(q.dtype).reshape(B, C, H, hd)
+
+
+def prefill_mask(prefix_lens: torch.Tensor, num_valid: torch.Tensor, C: int,
+                 S: int, window: Optional[int] = None) -> torch.Tensor:
+    """The chunked prefill's visibility, [B, C, S + C] bool: query c of
+    row b (position prefix_lens[b] + c) against the S pooled slots (slot
+    == position, visible below prefix_lens[b]) and then the chunk's own C
+    keys (causal, real below num_valid[b]); under a ``window`` a key is
+    visible only at a position above the query's minus the window. Padded
+    queries (c >= num_valid[b]) see nothing."""
+    dev = prefix_lens.device
+    B = prefix_lens.shape[0]
     positions = prefix_lens[:, None] + torch.arange(C, device=dev)[None, :]
     valid = torch.arange(C, device=dev)[None, :] < num_valid[:, None]
     q_pos = positions[:, :, None]                           # [B, C, 1]
@@ -173,12 +203,68 @@ def paged_attention_prefill_plain(q: torch.Tensor, k_pool: torch.Tensor,
         all_pos = torch.cat([pool_pos.expand(B, 1, S),
                              positions[:, None, :]], dim=2)
         mask = mask & (all_pos > (q_pos - window))
-    mask = mask & valid[:, :, None]
-    qg = q.reshape(B, C, KVH, H // KVH, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), keys) * scale
-    out = masked_softmax_pv(scores, mask[:, None, None], vals,
-                            "bkgqs,bskh->bqkgh")
-    return out.to(q.dtype).reshape(B, C, H, hd)
+    return mask & valid[:, :, None]
+
+
+# ---------------------------------------------------------------------------
+# the wgmma prefill kernel's route and schedule (csrc/paged_attention.cu:
+# launch_prefill and TilePlan), from shapes on the host, from the lengths
+# on the device
+# ---------------------------------------------------------------------------
+
+def prefill_rows(C: int, G: int, hd: int, page: int, q_dtype: torch.dtype,
+                 pool_dtype: torch.dtype) -> int:
+    """Query rows per CTA of the wgmma prefill kernel for a chunk of C
+    tokens, G query heads per kv head, head dim ``hd`` and pages of
+    ``page`` slots, or 0 where another prefill kernel takes the call. It
+    takes bf16 queries over a bf16, int8 or fp8 pool at hd 64 or 128 (a
+    bf16 row is one 128-byte TMA box per 64 columns) with pages of 8, 16
+    or 32 slots or a multiple of 64 (a 64-key tile is whole pages, or a
+    64-slot piece of one, each box 1024-byte aligned for the swizzle) and
+    G <= 128. It takes 128 rows (two consumer warpgroups, each K/V tile
+    serving both) unless C*G <= 64, where a second warpgroup would hold
+    no row."""
+    if (q_dtype != torch.bfloat16 or pool_dtype == torch.float32
+            or hd not in WGMMA_HEAD_DIMS or page < 8
+            or (PREFILL_BLOCK % page and page % PREFILL_BLOCK) or G > 128):
+        return 0
+    return 64 if C * G <= 64 else 128
+
+
+def prefill_plan(C: int, G: int, rows: int, prefix_len: int,
+                 num_valid: int, window: Optional[int] = None) -> list:
+    """The wgmma prefill kernel's schedule for one lane and kv head: a
+    CTA holds ``rows // G`` whole chunk tokens (its rows: their G query
+    heads each), and visits pool tiles (slots ``64 t`` ..) and then own
+    tiles (chunk keys ``64 u`` ..). Returns one dict per CTA:
+    ``tokens`` (its first token and one past its last), ``live`` (the same
+    for its real tokens, below ``num_valid``: the rest emit zeros),
+    ``pool`` and ``own``, lists of ``(tile, masked)`` in visiting order. A
+    tile is visited iff some live row sees a key of it, and ``masked``
+    unless every key of it is visible to every live row."""
+    T, block = rows // G, PREFILL_BLOCK
+    ctas = []
+    for c0 in range(0, C, T):
+        c_end = min(C, num_valid, c0 + T)
+        cta = {"tokens": (c0, min(C, c0 + T)), "live": (c0, max(c0, c_end)),
+               "pool": [], "own": []}
+        ctas.append(cta)
+        if c_end <= c0 or window == 0:
+            continue
+        c_lo, c_hi = c0, c_end - 1
+        lo = 0 if window is None else max(0, prefix_len + c_lo - window + 1)
+        if lo < prefix_len:
+            for t in range(lo // block, -(-prefix_len // block)):
+                free = ((t + 1) * block <= prefix_len and
+                        (window is None
+                         or t * block > prefix_len + c_hi - window))
+                cta["pool"].append((t, not free))
+        olo = 0 if window is None else max(0, c_lo - window + 1)
+        for u in range(olo // block, c_hi // block + 1):
+            free = (u * block + block - 1 <= c_lo and
+                    (window is None or u * block > c_hi - window))
+            cta["own"].append((u, not free))
+    return ctas
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +400,7 @@ def _library():
         lib = build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_paged_attention.argtypes = (
-            [p] * 13 + [i] * 10 + [ctypes.c_float, i, i, p])
+            [p] * 13 + [i] * 10 + [ctypes.c_float, i, i, i, i, p])
         lib.repro_paged_attention.restype = i
         _lib = lib
     return _lib
@@ -326,11 +412,12 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
-            k_scale, v_scale, *, scale: float, window: Optional[int]
-            ) -> torch.Tensor:
+            k_scale, v_scale, *, scale: float, window: Optional[int],
+            rows: int = 0) -> torch.Tensor:
     """Check the operands and launch on the current stream. q
     [B, C, H, hd] (decode: C = 1); own_k/own_v [B, C, KVH, hd] or None
-    (decode); k_scale/v_scale [NB, page, KVH] f32 or None (float pool).
+    (decode); k_scale/v_scale [NB, page, KVH] f32 or None (float pool);
+    ``rows`` > 0 (prefill) takes the wgmma kernel (:func:`prefill_rows`).
     The kernel reads the G query heads of each kv head in place."""
     B, C, H, hd = q.shape
     NB, page, KVH, pool_hd = k_pool.shape
@@ -371,6 +458,11 @@ def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
         _require(own_k.shape == (B, C, KVH, hd) and own_v.shape == own_k.shape
                  and own_k.dtype == q.dtype and own_v.dtype == q.dtype,
                  "own K/V must be [B, C, KVH, hd] in the query dtype")
+    if rows:   # TMA tensor maps: every stride above the innermost dim of
+        #        q, the pools and the own K/V a multiple of 16 bytes
+        _require(has_own and hd * q.element_size() % 16 == 0
+                 and hd * k_pool.element_size() % 16 == 0,
+                 "the wgmma prefill's tensor maps need 16-byte strides")
     out = torch.empty_like(q)
     # decode only: partial states of the parts of each lane's page range
     splits = 1 if has_own else split_count(bp, B * KVH)
@@ -387,7 +479,7 @@ def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
         ptr(out), ptr(part_o), ptr(part_ml), B, KVH, C * (H // KVH), C,
         H // KVH, bp, page, hd, int(q.dtype == torch.bfloat16),
         _POOL_KINDS[k_pool.dtype], scale,
-        -1 if window is None else int(window), splits,
+        -1 if window is None else int(window), splits, rows, NB,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
@@ -430,8 +522,12 @@ def paged_attention_prefill(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_prefill_plain(
             q, k_pool, v_pool, block_tables, prefix_lens, num_valid,
             own_k, own_v, scale, window, k_scale, v_scale)
+    B, C, H, hd = q.shape
+    rows = prefill_rows(C, H // k_pool.shape[2], hd, k_pool.shape[1],
+                        q.dtype, k_pool.dtype)
     out = _launch(q.contiguous(), k_pool, v_pool, block_tables, prefix_lens,
                   num_valid, own_k.contiguous(), own_v.contiguous(), k_scale,
-                  v_scale, scale=scale, window=window)
-    LAUNCHES["prefill" if k_scale is None else "prefill_quant"] += 1
+                  v_scale, scale=scale, window=window, rows=rows)
+    face = "prefill" if k_scale is None else "prefill_quant"
+    LAUNCHES[face + "_wgmma" if rows else face] += 1
     return out

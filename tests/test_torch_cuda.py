@@ -183,6 +183,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "paged_attention_prefill": 0,
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
+                                   "paged_attention_prefill_wgmma": 0,
+                                   "paged_attention_prefill_quant_wgmma": 0,
                                    "step_score": 0, "flash_attention": 0,
                                    "ssd_scan": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
@@ -306,9 +308,107 @@ def test_prefill_tensor_core_face(gen, pool, C, prefix, nvalid):
                                             scales.get("k_scale"),
                                             scales.get("v_scale"))
     torch.cuda.synchronize()
-    face = "prefill_quant" if scales else "prefill"
+    face = "prefill_quant_wgmma" if scales else "prefill_wgmma"
     assert ops.launch_counts()[f"paged_attention_{face}"] == 1
     assert bool((got[0, nvalid:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def _wgmma_prefill(gen, C, KVH, G, hd, prefix, nvalid, window, page=16,
+                   pool="bf16"):
+    """bf16 queries over a bf16 (int8, fp8) pool through the wgmma
+    prefill kernel: its output, the plain version's, and the launch
+    counts it moved."""
+    bp = -(-max(prefix, 1) // page) + 1
+    q = torch.randn(1, C, KVH * G, hd, generator=gen, device="cuda")
+    own = [torch.randn(1, C, KVH, hd, generator=gen, device="cuda")
+           .to(torch.bfloat16) for _ in range(2)]
+    kp, vp, bt, scales = _any_pools(gen, 1, bp, KVH, hd, pool, page)
+    pl = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    nv = torch.tensor([nvalid], dtype=torch.int32, device="cuda")
+    args = (q.to(torch.bfloat16), kp, vp, bt, pl, nv, *own)
+    scale = hd ** -0.5
+    assert pa.prefill_rows(C, G, hd, page, torch.bfloat16, kp.dtype) > 0
+    ops.reset_launch_counts()
+    got = pa.paged_attention_prefill(*args, scale=scale, window=window,
+                                     **scales)
+    torch.cuda.synchronize()
+    moved = {k: n for k, n in ops.launch_counts().items() if n}
+    want = pa.paged_attention_prefill_plain(*args, scale, window,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    assert bool((got[0, nvalid:] == 0).all())   # padded queries: zeros
+    return got, want, moved
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("C,prefix,nvalid,window", [
+    (1, 300, 1, 128), (16, 300, 13, 128), (16, 64, 16, None),
+    (64, 200, 64, 128), (64, 0, 50, None), (64, 131, 64, 40)])
+def test_prefill_wgmma_kernel_matches_plain(gen, hd, page, C, prefix,
+                                            nvalid, window):
+    """The wgmma prefill kernel at C 1, 16 and 64 (64 and 128 rows per
+    CTA), pages of 8, 16 and 32 slots, hd 64 and 128, with and without a
+    window (its edge in the pool, or inside the chunk at window 40): only
+    its counter moves."""
+    got, want, moved = _wgmma_prefill(gen, C, 8, 4, hd, prefix, nvalid,
+                                      window, page)
+    assert moved == {"paged_attention_prefill_wgmma": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("prefix,nvalid,window", [
+    (600, 512, 300), (4608, 512, 4096), (4096, 104, 4096)])
+def test_prefill_wgmma_kernel_window_edge_inside_a_wide_chunk(
+        gen, prefix, nvalid, window):
+    """mixtral-8x7b's 512-token chunk (32 query heads over 8, hd 128)
+    through the wgmma kernel, the window's edge at the three positions of
+    ``test_prefill_kernel_window_edge_inside_a_wide_chunk``."""
+    got, want, moved = _wgmma_prefill(gen, 512, 8, 4, 128, prefix, nvalid,
+                                      window)
+    assert moved == {"paged_attention_prefill_wgmma": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("C,KVH,G,hd,prefix,nvalid,window,page", [
+    (3, 1, 48, 128, 37, 3, None, 16),     # granite: one token per CTA row
+    (16, 1, 48, 128, 100, 11, 64, 16),    # two tokens per CTA
+    (40, 4, 6, 128, 70, 33, 30, 16),      # G 6: 21 tokens of 128 rows
+    (64, 8, 3, 128, 130, 64, None, 16),   # G 3
+    (8, 2, 2, 64, 16, 8, None, 16),       # the serving launcher's chunk
+    (16, 8, 4, 128, 300, 13, 128, 128),   # 64-slot pieces of a page
+    (512, 8, 4, 128, 4608, 512, None, 16),   # a long prompt, no window
+])
+def test_prefill_wgmma_kernel_groups_and_pages(gen, C, KVH, G, hd, prefix,
+                                               nvalid, window, page):
+    got, want, moved = _wgmma_prefill(gen, C, KVH, G, hd, prefix, nvalid,
+                                      window, page)
+    assert moved == {"paged_attention_prefill_wgmma": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("C,KVH,G,hd,prefix,nvalid,window,page", [
+    (16, 8, 4, 128, 300, 13, 128, 16),
+    (1, 8, 4, 128, 300, 1, 128, 32),
+    (64, 8, 4, 64, 200, 64, 40, 8),
+    (8, 2, 2, 64, 40, 3, None, 16),       # the serving launcher's chunk
+    (512, 8, 4, 128, 4608, 512, 4096, 16),   # mixtral's chunk
+    (512, 8, 4, 128, 600, 512, 300, 16),
+])
+def test_prefill_wgmma_kernel_quant_pools(gen, pool, C, KVH, G, hd, prefix,
+                                          nvalid, window, page):
+    """K1c's prefill face on the wgmma kernel: int8/fp8 codes landed by
+    TMA and converted to bf16 in shared memory, the per-slot scales folded
+    in per key; only its counter moves."""
+    got, want, moved = _wgmma_prefill(gen, C, KVH, G, hd, prefix, nvalid,
+                                      window, page, pool)
+    assert moved == {"paged_attention_prefill_quant_wgmma": 1}
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
 

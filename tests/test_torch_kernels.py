@@ -185,6 +185,8 @@ def test_cpu_wrappers_count_no_launch():
                                    "paged_attention_prefill": 0,
                                    "paged_attention_decode_quant": 0,
                                    "paged_attention_prefill_quant": 0,
+                                   "paged_attention_prefill_wgmma": 0,
+                                   "paged_attention_prefill_quant_wgmma": 0,
                                    "step_score": 0, "flash_attention": 0,
                                    "ssd_scan": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
