@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
                 exists), the instances below hd 128 that spill more than
                 their hd-128 twin, and the HMMA/HGMMA (tensor-core)
                 instructions in each library's SASS where ``cuobjdump``
-                exists (K3's library must hold HMMA, the paged kernel's
-                HGMMA: its wgmma prefill kernel), and fails if the wgmma
-                prefill kernel spills;
+                exists (K3's library must hold HGMMA, its wgmma face, and
+                HMMA, its mma.sync and 3xTF32 faces; the paged kernel's
+                HGMMA: its wgmma prefill kernel), and fails if a wgmma
+                kernel (K1b's prefill, K3's bf16 face) spills;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main paths' full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a, K1b: bf16 queries
@@ -25,8 +26,10 @@ Phases, each printing one JSON line:
                 ``..._prefill_quant``) and over
                 int8/fp8 pools (K1c) at qwen3's heads (32 over 8, hd 128),
                 zamba2's (32 over 32, hd 80) and granite-20b's (48 over 1,
-                hd 128), the scorer (K2), flash attention (K3, hd 128 and
-                80), the SSD scan (K4 at mamba2's state 128 and zamba2's
+                hd 128), the scorer (K2), flash attention (K3 at hd 128,
+                80, 64 and 32, each in bf16 and f32: its ``kernels`` line's
+                ``flash_launches`` shows that the wgmma, mma.sync tile and
+                3xTF32 faces each ran), the SSD scan (K4 at mamba2's state 128 and zamba2's
                 64: y and the final state, also over a padded sequence and
                 with the init's steep decays), and Mamba2's decode state
                 update (``ssm_decode`` at both states: 128 chained steps,
@@ -211,7 +214,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
+TF32X3 = "3xtf32"
+# dense peaks: bf16 tensor cores, f32 CUDA cores, and f32 products in
+# 3xTF32 on the tensor cores (three TF32 products per f32 product, so a
+# third of TF32's 495), the rate of the kernels that take them (K3's f32
+# face, K4)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              TF32X3: 495e12 / 3}
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # one bf16 ulp of the output
 F32_TOL = dict(atol=1e-4, rtol=1e-4)    # summation order only
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 throughout
@@ -410,14 +419,18 @@ def phase_build(ops):
         check(spill <= KNOWN_SPILLS_BEYOND_HD128.get(name, 0),
               f"{name} spills {spill} B, beyond its hd-128 instance")
     if tc != "not available":
-        check(tc["flash_attention"]["HMMA"] + tc["flash_attention"]["HGMMA"]
-              > 0, "K3 has no tensor-core instruction")
+        check(tc["flash_attention"]["HGMMA"] > 0,
+              "K3's wgmma face has no HGMMA")
+        check(tc["flash_attention"]["HMMA"] > 0,
+              "K3's mma.sync and 3xTF32 faces have no HMMA")
         check(tc["paged_attention"]["HGMMA"] > 0,
               "K1b's wgmma prefill kernel has no HGMMA")
-    for name, row in table["paged_attention"].items():
-        if "prefill_wgmma_kernel" in name:
-            check(row["spill_bytes"] <= KNOWN_SPILLS_BEYOND_HD128.get(name, 0),
-                  f"{name} spills {row['spill_bytes']} B")
+    for src, kernel in (("paged_attention", "prefill_wgmma_kernel"),
+                        ("flash_attention", "flash_wgmma_kernel")):
+        for name, row in table[src].items():
+            if kernel in name:
+                check(row["spill_bytes"] == 0,
+                      f"{name} spills {row['spill_bytes']} B")
     return seconds
 
 
@@ -749,10 +762,13 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     # K3: B = 1, H = 32, S = 2048 at qwen3's hd 128 and zamba2's hd 80;
     # then forward_mixtral's S = 8192 under the 4096 window, and
     # forward_seamless's decoder (16 heads, hd 64, S = 512)
+    flash_before = dict(fa.LAUNCHES)
     check_flash(fa, g, errs, 32, 128)
     check_flash(fa, g, errs, 32, 80, "_hd80")
     check_flash_window(fa, g, errs)
     check_flash(fa, g, errs, 16, 64, "_seamless", S=SEAMLESS_S)
+    # hd 32 (no arch of the zoo; the mma.sync face)
+    check_flash(fa, g, errs, 8, 32, "_hd32", S=512)
     # K2: B = 64, D = 2560 (qwen3-4b, mamba2, zamba2), hidden in bf16 and
     # f32; then the dense archs' widths over the dense_archs phase's 8
     # lanes: D = 2048 (qwen3-1.7b, internvl2-2b), 3072 (phi4-mini,
@@ -788,7 +804,14 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
                          "prefill_quant")}
     check(all(n > 0 for n in prefill.values()),
           f"kernels: a prefill kernel never ran: {prefill}")
+    # K3's three faces each ran: wgmma (bf16 at hd 64/80/128), the mma.sync
+    # tile (bf16 at hd 32), 3xTF32 (f32)
+    flash = {k: fa.LAUNCHES[k] - flash_before[k]
+             for k in ("flash_wgmma", "flash_tile", "flash_f32_tc")}
+    check(all(n > 0 for n in flash.values()),
+          f"kernels: a flash face never ran: {flash}")
     emit("kernels", max_abs_err=errs, prefill_launches=prefill,
+         flash_launches=flash,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
     return errs
@@ -2269,7 +2292,8 @@ def time_flash(fa, g, H, hd, dtype, S=2048, window=None):
         shape=f"B=1 H={H} S={S} hd={hd} causal window={window} "
               f"{str(dtype)[6:]}",
         bytes=4 * qf.numel() * qf.element_size(),
-        flops=4 * hd * H * visible, dtype=dtype)
+        flops=4 * hd * H * visible,
+        dtype=dtype if dtype == torch.bfloat16 else TF32X3)
 
 
 def time_ssd(sd, g, N):
@@ -2293,7 +2317,7 @@ def time_ssd(sd, g, N):
         shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={N} chunk={ls} f32",
         bytes=4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
                    + Bs * Hs * Ps * N),
-        flops=flops, dtype=torch.float32)
+        flops=flops, dtype=TF32X3)
 
 
 def time_ssm_decode(smd, g, N):

@@ -1,4 +1,5 @@
-// Tensor-core attention tile, shared by flash_attention.cu (K3) and the
+// Tensor-core attention tile, shared by flash_attention.cu (K3: the
+// mma.sync face at hd 32; the softmax pieces in every face) and the
 // prefill face of paged_attention.cu (K1b, K1c prefill).
 //
 // One warp owns MT blocks of 16 query rows (MT = 2 in K3, as in
@@ -12,7 +13,8 @@
 // so that consecutive rows start 16 bytes apart modulo 128. Per tile:
 //
 //   qk()             S = Q K^T with mma.sync.m16n8k16 (bf16 in, f32 out);
-//   online_softmax() the row max and row sum of the S fragments, reduced
+//   online_softmax() (softmax_p() then rescale())
+//                    the row max and row sum of the S fragments, reduced
 //                    across the 4 lanes of a quad with shuffles (no
 //                    shared-memory round trip), the rescale of the
 //                    accumulator, and S replaced by p = exp(s - m) in f32;
@@ -178,25 +180,27 @@ __device__ __forceinline__ void qk(float (&s)[MT][BK / 8][4],
 
 // Fold one block's tile of raw scores (f32 dot products, times a
 // per-key factor where the caller has one; masked entries exactly
-// NEG_INF) into its rows' running max m (raw units), sum l (this lane's
-// columns only; the quad's partial sums are added in finalize) and
-// accumulator o. p = exp2(s * c - m * c) with c = scale * log2 e: one
-// FFMA and one MUFU exp2 per score. A masked score's p underflows to exactly
-// 0, also in a row that has seen no key yet (its max is NEG_INF and its
-// offset 0), which is p = where(mask, exp(scale * (s - m)), 0). On return
-// s holds p in f32.
-template <int HD>
-__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
-                                               float (&o)[HD / 8][4],
-                                               float (&m)[2], float (&l)[2],
-                                               float scale_log2) {
+// NEG_INF) into its rows' running max m (raw units) and sum l (this
+// lane's columns only; the quad's partial sums are added in finalize).
+// p = exp2(s * c - m * c) with c = scale * log2 e: one FFMA and one MUFU
+// exp2 per score. A masked score's p underflows to exactly 0, also in a
+// row that has seen no key yet (its max is NEG_INF and its offset 0),
+// which is p = where(mask, exp(scale * (s - m)), 0). On return s holds p
+// in f32 and alpha the factor by which the rows' accumulator must be
+// rescaled (rescale(); the wgmma face applies it once its P V product of
+// the previous tile has landed).
+// (N8 8-key column groups: a tile of 8 * N8 keys.)
+template <int N8>
+__device__ __forceinline__ void softmax_p(float (&s)[N8][4], float (&m)[2],
+                                          float (&l)[2], float scale_log2,
+                                          float (&alpha)[2]) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
+  for (int n = 0; n < N8; ++n) {
     mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
   }
-  float alpha[2], base[2];
+  float base[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -207,7 +211,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
+  for (int n = 0; n < N8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = exp2_approx(fmaf(s[n][e], scale_log2, -base[e >> 1]));
@@ -215,7 +219,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
       l[e >> 1] += p;
     }
   }
-  // once the row maxima settle, alpha is exactly 1 for the whole warp
+}
+
+// o *= alpha per row; once the row maxima settle, alpha is exactly 1 for
+// the whole warp and nothing is multiplied
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 8][4],
+                                        const float (&alpha)[2]) {
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -225,6 +235,17 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
       o[n][3] *= alpha[1];
     }
   }
+}
+
+// softmax_p, then the accumulator o rescaled at once
+template <int HD>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
+                                               float (&o)[HD / 8][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float scale_log2) {
+  float alpha[2];
+  softmax_p(s, m, l, scale_log2, alpha);
+  rescale<HD>(o, alpha);
 }
 
 // o[mt] += P V for the tile vs and the warp's MT row blocks; P is

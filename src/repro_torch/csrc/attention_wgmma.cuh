@@ -1,14 +1,17 @@
 // Hopper's own attention pieces (sm_90a): TMA loads completed on
 // mbarriers, and warpgroup products (wgmma) with their operands in
-// 128-byte-swizzled shared memory. Used by the wgmma prefill face of
-// paged_attention.cu (K1b); the mma.sync tile of attention_tile.cuh stays
-// with K3 and K1's other faces.
+// 128-byte-swizzled shared memory, and the host's tensor maps for the TMA
+// unit. Used by the wgmma prefill face of paged_attention.cu (K1b, K1c)
+// and the wgmma face of flash_attention.cu (K3 at hd 64, 80 and 128); the
+// mma.sync tile of attention_tile.cuh stays with K3 at hd 32 and K1's
+// prefill at hd 32 and 80.
 //
 // Layouts. Every tile in shared memory is a stack of [rows, 64] bf16
 // blocks, one 128-byte row per key or query row, as a TMA box with
 // CU_TENSOR_MAP_SWIZZLE_128B writes it: the 16-byte chunks of row r sit
 // XOR-ed with r % 8, and each block starts on a 1024-byte boundary. A
-// head dim of 128 is two such blocks, 64 columns each.
+// head dim of 128 is two such blocks, 64 columns each; hd 80 is two
+// blocks too, the second holding columns 64-79 and the box's zero fill.
 //
 //   K-major operand (Q as A, K as B of S = Q K^T): one k-step of 16
 //     columns is 32 bytes inside a 128-byte row; the descriptor's start
@@ -17,6 +20,8 @@
 //   MN-major operand (V as B of O = P V, read transposed): a k-step is 16
 //     keys, 16 rows of 128 bytes (2048 bytes); 8-key groups lie 1024 bytes
 //     apart (SBO) and the 64-column blocks of hd one block apart (LBO).
+//     An N of 80 reads the first block whole and two 8-column groups of
+//     the second.
 //
 // Accumulators (f32, m64nN): warp w of the warpgroup owns rows 16w..16w+15;
 // d[n][0..1] is row lane / 4, columns 8n + 2 (lane % 4) + {0, 1}, and
@@ -26,7 +31,9 @@
 // the A registers of P V unchanged (bf16, K-major).
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its enums (the driver call is looked up)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wg {
@@ -76,9 +83,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
 }
-// one box of a 4-D / 5-D tensor map (coordinates innermost first) into
-// shared memory at dst, completing on `bar`; out-of-bounds elements are
-// written as zeros
+// one box of a 3-D, 4-D or 5-D tensor map (coordinates innermost first)
+// into shared memory at dst, completing on `bar`; out-of-bounds elements
+// are written as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const void* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load(uint32_t dst, const void* map,
                                          uint32_t bar, int c0, int c1,
                                          int c2, int c3) {
@@ -174,6 +190,76 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[8][4], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (+)= A B, m64n64k16: A (bf16) from registers, B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void mma_rs_k_n64(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A B, m64n128k16: A (bf16) from registers, B K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void mma_rs_k_n128(float (&d)[16][4],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// S = Q K^T over a tile of N keys (64 or 128), K-major in shared memory,
+// with Q as the A registers
+template <int N>
+__device__ __forceinline__ void mma_rs_k(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "a key tile of 64 or 128");
+  if constexpr (N == 64) mma_rs_k_n64(d, a, db, scale_d);
+  else mma_rs_k_n128(d, a, db, scale_d);
+}
+
 // D += A B, m64n64k16: A (bf16) from registers, B in shared memory
 // MN-major (128-byte swizzle, read transposed).
 __device__ __forceinline__ void mma_rs_n64(float (&d)[8][4],
@@ -234,12 +320,96 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A B, m64n80k16: A (bf16) from registers, B in shared memory
+// MN-major (128-byte swizzle, read transposed).
+__device__ __forceinline__ void mma_rs_n80(float (&d)[10][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 8][4],
                                        const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "P V at hd 64 or 128");
+  static_assert(N == 64 || N == 80 || N == 128, "P V at hd 64, 80 or 128");
   if constexpr (N == 64) mma_rs_n64(d, a, db);
+  else if constexpr (N == 80) mma_rs_n80(d, a, db);
   else mma_rs_n128(d, a, db);
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first; `strides` in elements, of
+// each dim above the innermost) and boxes of `box`; out-of-bounds elements
+// read as zeros. bf16 rows take the 128-byte swizzle; int8/fp8 codes land
+// as they are, as bytes.
+inline bool tensor_map(CUtensorMap* map, bool codes, const void* base,
+                       int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const size_t elem = codes ? 1 : sizeof(__nv_bfloat16);
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t bd[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bd[i] = box[i];
+    es[i] = 1;
+  }
+  for (int i = 0; i + 1 < rank; ++i) gs[i] = strides[i] * elem;
+  return encode(map,
+                codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank, const_cast<void*>(base), gd, gs, bd, es,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                codes ? CU_TENSOR_MAP_SWIZZLE_NONE
+                      : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

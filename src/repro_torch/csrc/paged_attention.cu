@@ -110,7 +110,6 @@
 // (the tensor-core tile takes any multiple of 16; the int8/fp8 rows of
 // hd 80 are five 16-byte chunks, so their tile copies run in ragged
 // rounds).
-#include <cuda.h>   // CUtensorMap and its enums (the driver call is looked up)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -1483,59 +1482,7 @@ int launch_decode(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up once through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A tensor map of `rank` dims (innermost first; `strides` in elements, of
-// each dim above the innermost) and boxes of `box`; out-of-bounds elements
-// read as zeros. bf16 rows take the 128-byte swizzle; int8/fp8 codes land
-// as they are, as bytes.
-bool tensor_map(CUtensorMap* map, bool codes, const void* base, int rank,
-                const uint64_t* dims, const uint64_t* strides,
-                const uint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const size_t elem = codes ? 1 : sizeof(bf16);
-  cuuint64_t gd[5], gs[4];
-  cuuint32_t bd[5], es[5];
-  for (int i = 0; i < rank; ++i) {
-    gd[i] = dims[i];
-    bd[i] = box[i];
-    es[i] = 1;
-  }
-  for (int i = 0; i + 1 < rank; ++i) gs[i] = strides[i] * elem;
-  return encode(map,
-                codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                rank, const_cast<void*>(base), gd, gs, bd, es,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                codes ? CU_TENSOR_MAP_SWIZZLE_NONE
-                      : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using wg::tensor_map;
 
 template <int HD, int NWG, typename KT>
 int launch_wgmma_grid(const PrefillMaps& maps, const Args& a, int B,

@@ -63,7 +63,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32.cuh"
+
 namespace {
+
+using tf32::mma_tf32;
+using tf32::split_tf32;
 
 constexpr int NT = 256;          // threads per CTA of passes 1 and 4
 constexpr int TI = 64;           // output rows (and keys) per tile
@@ -141,28 +146,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
       cp4(dst + r * LD + c, ok ? src + r * ld + c : src, ok);
     }
   }
-}
-
-// The products run on the tensor cores in 3xTF32, which keeps f32's
-// accuracy: each f32 operand x = big + small with big = tf32(x) and
-// small = tf32(x - big), and a product takes a_small b_big + a_big b_small
-// + a_big b_big (the dropped a_small b_small is ~2^-22 of it), summed in
-// f32 by mma.sync.m16n8k8.
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small)
-      : "f"(x - __uint_as_float(big)));
-}
-
-// d += a b for one 16 x 8 x 8 tile (fragments in mma.sync's layout)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Element (k, c) of a staged operand: row k of k-major storage, or row c

@@ -11,13 +11,20 @@ the tensor cores and rounds P to bf16 before P.V, as ``mha_ref`` does
 (``paged_attention.tiled_softmax_pv`` with ``p_dtype=torch.bfloat16`` is
 that algebra); in f32 it computes in f32 throughout.
 
+The kernel has three faces, chosen from head dim and dtype alone
+(:func:`flash_face`): bf16 at hd 64, 80 and 128 on ``wgmma`` with TMA
+loads (64 or 128 query rows per CTA, :func:`flash_rows`, visiting the key
+tiles of :func:`flash_plan`), bf16 at hd 32 on the ``mma.sync`` tile, and
+f32 on the tensor cores in 3xTF32.
+
 The JAX package has no backward for this kernel (``jax.grad`` through it
 fails) and trains with ``use_kernel=False``; the port keeps that: the
 wrapper is a ``torch.autograd.Function`` whose backward raises.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises (no fallback), adding one to
-``LAUNCHES["flash"]``.
+``LAUNCHES["flash"]`` (every face) and one to its face's
+``LAUNCHES["flash_wgmma"]``, ``["flash_tile"]`` or ``["flash_f32_tc"]``.
 """
 from __future__ import annotations
 
@@ -30,9 +37,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import masked_softmax_pv
 
-LAUNCHES = {"flash": 0}
+LAUNCHES = {"flash": 0, "flash_wgmma": 0, "flash_tile": 0,
+            "flash_f32_tc": 0}
 BLOCK = 128   # the TPU kernel's default q/kv block: S must tile by it
 HEAD_DIMS = (32, 64, 80, 128)   # the head dims the kernel is built for
+WGMMA_HEAD_DIMS = (64, 80, 128)   # bf16 rows the wgmma face takes
+SMS = 132       # the H100 SXM's streaming multiprocessors
 _lib = None
 
 
@@ -47,6 +57,86 @@ def attention_mask(S: int, causal: bool, window: Optional[int],
     if window is not None:
         mask &= k_pos > (q_pos - window)
     return mask
+
+
+def flash_face(hd: int, dtype: torch.dtype) -> str:
+    """The kernel face for head dim ``hd`` and ``dtype``: "wgmma" (bf16
+    at hd 64, 80, 128: TMA loads, warpgroup products), "tile" (bf16 at
+    hd 32, whose 64-byte rows are half of wgmma's 128-byte swizzle atom:
+    the mma.sync tile) or "f32_tc" (f32: the tensor cores in 3xTF32)."""
+    if dtype == torch.float32:
+        return "f32_tc"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "tile"
+
+
+def flash_rows(BH: int, S: int, hd: int, dtype: torch.dtype) -> int:
+    """Query rows per CTA of the wgmma face for ``BH`` (batch x heads)
+    sequences of ``S`` tokens, or 0 where another face takes the call. 128
+    rows (two consumer warpgroups, each K/V tile read serving both) unless
+    ``BH * ceil(S / 128)`` CTAs would leave SMs idle: then 64, twice the
+    CTAs (seamless's decoder, B*H 16 at S 512, makes 64 CTAs of 128 rows
+    for 132 SMs)."""
+    if flash_face(hd, dtype) != "wgmma":
+        return 0
+    return 64 if BH * -(-S // 128) < SMS else 128
+
+
+def _span(S: int, r0: int, r1: int, causal: bool, window: Optional[int],
+          key_tile: int):
+    """The kernel's ``Tiles`` over query rows r0..r1: the key tiles (of
+    ``key_tile`` keys) holding a key that some live row (< S) sees, and
+    the test ``masked(t)``: true unless every key of tile t is visible to
+    every live row."""
+    r1 = min(r1, S - 1)
+
+    def lo(q):
+        return 0 if window is None else max(0, q - window + 1)
+
+    def hi(q):
+        return min(q, S - 1) if causal else S - 1
+
+    lo_last, hi_first = (lo(r1), hi(r0)) if r0 <= r1 else (0, -1)
+
+    def masked(t):
+        return not (t * key_tile >= lo_last
+                    and t * key_tile + key_tile - 1 <= hi_first)
+
+    a, b = r0, r1
+    if window is not None:
+        if causal and window == 0:
+            b = -1
+        elif not causal:
+            b = min(b, S + window - 2)   # rows past it see nothing
+    tiles = (range(lo(a) // key_tile, hi(b) // key_tile + 1) if a <= b
+             else range(0))
+    return tiles, masked
+
+
+def flash_plan(S: int, rows: int, causal: bool,
+               window: Optional[int] = None,
+               key_tile: Optional[int] = None) -> list:
+    """The schedule of one (batch, head), the host's copy of the kernel's
+    ``Tiles``: CTAs of ``rows`` query rows over key tiles of ``key_tile``
+    keys (the wgmma face: as many as ``rows``; the tile and f32 faces: 64,
+    in CTAs of 128 rows). One dict per CTA: ``rows`` (its first row and one
+    past its last live one), ``tiles`` (the key tiles it loads and
+    computes, ``(tile, masked)``) and ``groups`` (for each 64-row consumer
+    warpgroup, the same tiles with the warpgroup's own ``masked``: a tile
+    none of its rows sees is computed masked, p = 0). A tile is visited iff
+    some live row of the CTA sees one of its keys, and ``masked`` unless
+    every key of it is visible to every live row: the causal diagonal, the
+    window's left edge, the end of a ragged S."""
+    key_tile = key_tile or rows
+    plan = []
+    for q0 in range(0, S, rows):
+        tiles, masked = _span(S, q0, q0 + rows - 1, causal, window,
+                              key_tile)
+        groups = [_span(S, g0, g0 + 63, causal, window, key_tile)[1]
+                  for g0 in range(q0, q0 + rows, 64)]
+        plan.append({"rows": (q0, min(S, q0 + rows)),
+                     "tiles": [(t, masked(t)) for t in tiles],
+                     "groups": [[(t, g(t)) for t in tiles] for g in groups]})
+    return plan
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,10 +160,16 @@ def _library():
         lib = build.load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [p] * 4 + [i] * 6 + [ctypes.c_float, p])
+            [p] * 4 + [i] * 6 + [ctypes.c_float, i, p])
         lib.repro_flash_attention.restype = i
         _lib = lib
     return _lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the wgmma face's tensor maps."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(q, k, v, causal: bool, window: Optional[int],
@@ -89,17 +185,20 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
                          f"{HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention kernel: dtype {q.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    face = flash_face(hd, q.dtype)
     err = _library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, S,
         hd, int(q.dtype == torch.bfloat16), int(causal),
         -1 if window is None else int(window), scale,
+        flash_rows(B * H, S, hd, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel ({face} face) launch "
+                           f"failed: CUDA error {err}")
     LAUNCHES["flash"] += 1
+    LAUNCHES["flash_" + face] += 1
     return out
 
 

@@ -42,6 +42,9 @@ _KERNELS = {
                                             "prefill_quant_wgmma"),
     "step_score": (_score.LAUNCHES, "step_score"),
     "flash_attention": (_flash.LAUNCHES, "flash"),
+    "flash_attention_wgmma": (_flash.LAUNCHES, "flash_wgmma"),
+    "flash_attention_tile": (_flash.LAUNCHES, "flash_tile"),
+    "flash_attention_f32_tc": (_flash.LAUNCHES, "flash_f32_tc"),
     "ssd_scan": (_ssd.LAUNCHES, "ssd_scan"),
     "ssm_decode": (_ssm.LAUNCHES, "ssm_decode"),
 }

@@ -186,6 +186,9 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "paged_attention_prefill_wgmma": 0,
                                    "paged_attention_prefill_quant_wgmma": 0,
                                    "step_score": 0, "flash_attention": 0,
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_tile": 0,
+                                   "flash_attention_f32_tc": 0,
                                    "ssd_scan": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}
@@ -452,6 +455,80 @@ def test_flash_kernel_long_sequence(gen, window):
     want = fa.flash_attention_plain(q, k, v, True, window)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+FACES = ("flash_attention_wgmma", "flash_attention_tile",
+         "flash_attention_f32_tc")
+# (H, S, rows): B = 1; flash_rows takes 64 rows per CTA where
+# H * ceil(S / 128) < 132, else 128
+WGMMA_SHAPES = [(2, 64, 64), (140, 64, 128), (4, 512, 64), (40, 512, 128),
+                (2, 2048, 64), (9, 2048, 128), (2, 100, 64),
+                (140, 100, 128)]
+FLASH_MASKS = [(True, None), (True, 128), (False, None), (False, 50)]
+
+
+def _flash_face(gen, H, S, hd, dtype, causal, window):
+    """One flash call against its plain version; returns (got, want,
+    {face counter: launches})."""
+    q, k, v = (torch.randn(1, H, S, hd, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    return got, want, {f: counts[f] for f in FACES if counts[f]}
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("H,S,rows", WGMMA_SHAPES)
+def test_flash_wgmma_face_matches_plain(gen, hd, causal, window, H, S, rows):
+    """bf16 at hd 64/80/128 runs the wgmma face, at both row counts (the
+    route from the shape), S 64, 512, 2048 and a ragged S (100)."""
+    assert fa.flash_rows(H, S, hd, torch.bfloat16) == rows
+    got, want, moved = _flash_face(gen, H, S, hd, torch.bfloat16, causal,
+                                   window)
+    assert moved == {"flash_attention_wgmma": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("S", [64, 100, 512])
+def test_flash_f32_face_matches_plain(gen, hd, causal, window, S):
+    """f32 runs the 3xTF32 tensor-core face at every head dim, within the
+    f32 tolerance (1e-4)."""
+    got, want, moved = _flash_face(gen, 3, S, hd, torch.float32, causal,
+                                   window)
+    assert moved == {"flash_attention_f32_tc": 1}
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("S", [64, 100, 512])
+def test_flash_tile_face_at_hd32(gen, causal, window, S):
+    """bf16 at hd 32 runs the mma.sync tile."""
+    got, want, moved = _flash_face(gen, 3, S, 32, torch.bfloat16, causal,
+                                   window)
+    assert moved == {"flash_attention_tile": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_wgmma_face_takes_unaligned_operands(gen):
+    """The wgmma face's tensor maps need 16-byte aligned rows: operands
+    that start 2 bytes into their storage are copied, not refused."""
+    base = torch.randn(3 * 2 * 256 * 64 + 1, generator=gen, device="cuda")
+    base = base.to(torch.bfloat16)
+    q, k, v = base[1:].view(3, 1, 2, 256, 64).unbind(0)
+    assert q.data_ptr() % 16 != 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, True)
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
 

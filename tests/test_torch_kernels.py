@@ -188,6 +188,9 @@ def test_cpu_wrappers_count_no_launch():
                                    "paged_attention_prefill_wgmma": 0,
                                    "paged_attention_prefill_quant_wgmma": 0,
                                    "step_score": 0, "flash_attention": 0,
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_tile": 0,
+                                   "flash_attention_f32_tc": 0,
                                    "ssd_scan": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}
