@@ -14,11 +14,19 @@ Phases, each printing one JSON line:
                 instructions in each library's SASS where ``cuobjdump``
                 exists (K3's library must hold HGMMA, its wgmma face, and
                 HMMA, its mma.sync and 3xTF32 faces; the paged kernel's
-                HGMMA: its wgmma prefill kernel), and fails if a wgmma
-                kernel (K1b's prefill, K3's bf16 face) spills;
+                HGMMA: its wgmma prefill kernel; the cluster decode
+                face's HMMA), and fails if a wgmma kernel (K1b's prefill,
+                K3's bf16 face) or an instance of the cluster decode face
+                (``csrc/paged_decode.cu``) spills;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main paths' full-width shapes: the
-                paged kernel over bf16/f32 pools (K1a, K1b: bf16 queries
+                paged kernel over bf16/f32 pools (K1a: bf16 queries over
+                a bf16, int8 or fp8 pool at hd 64/80/128 take the cluster
+                face, counted under ``paged_attention_decode_cluster`` /
+                ``..._decode_quant_cluster``, the rest ``decode_kernel``,
+                ``paged_attention_decode`` / ``..._decode_quant``: the
+                ``kernels`` line's ``decode_launches`` shows all four
+                moved; K1b: bf16 queries
                 over a bf16 pool at hd 64/128 take its wgmma prefill
                 kernel, counted under ``paged_attention_prefill_wgmma``,
                 the other prefill cases ``paged_attention_prefill``; over
@@ -36,7 +44,10 @@ Phases, each printing one JSON line:
                 every lane's state moving);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
                 seeded weights) under memory pressure through
-                ``Engine.serve``, kernels on: launch counts, pruning, a
+                ``Engine.serve``, kernels on: launch counts (the cluster
+                decode face once per attention layer and decode
+                iteration, ``decode_kernel`` never; so in every bf16,
+                int8 and fp8 serve phase), pruning, a
                 drained pool; then the kernel engine against the dense
                 engine at the smoke config (f32, greedy tokens identical).
                 Every serve phase runs the engine as users do (each decode
@@ -61,8 +72,12 @@ Phases, each printing one JSON line:
   8. train    — AdamW steps of ``make_train_step`` at full width, then
                 ``build_step_scorer`` and a STEP serve with that scorer;
   9. times    — device time of each kernel, its plain version and the
-                library yardstick (one CUDA-graph replay per timed call,
-                cold L2), and each kernel's bound, at the serve and
+                library yardstick (the median of 30 CUDA-graph replays,
+                cold L2, the fastest and slowest beside it), the floor
+                (``empty_kernel``: a launch that does nothing), K1a/K1c's
+                decode rows also through ``decode_kernel`` on the same
+                inputs (``split_ms``), and each kernel's bound, at the
+                serve and
                 forward phases' shapes (qwen3, and the ``_hd80``, ``_g48``
                 and ``_zamba2`` instances of this slice's paths); also K1a
                 over long rows (``paged_attention_decode_long``, 16 lanes
@@ -238,8 +253,34 @@ K1C_PREFILL = ("paged_attention_prefill_quant_wgmma",
                "paged_attention_prefill_quant")
 
 
+# K1a's decode launch counters: the cluster face (bf16 queries over a bf16,
+# int8 or fp8 pool at hd 64/80/128) and decode_kernel, the split face (f32
+# queries or pools, hd 32); K1c's decode face over an int8/fp8 pool the
+# same way
+K1A = ("paged_attention_decode_cluster", "paged_attention_decode")
+K1C_DECODE = ("paged_attention_decode_quant_cluster",
+              "paged_attention_decode_quant")
+SPLIT_DECODE = ("paged_attention_decode", "paged_attention_decode_quant")
+
+
 def k1b_launches(launches: dict, faces=K1B) -> int:
     return sum(launches[k] for k in faces)
+
+
+def k1a_launches(launches: dict) -> int:
+    """Decode launches of either face over any pool."""
+    return sum(launches[k] for k in K1A + K1C_DECODE)
+
+
+def check_decode_launches(name, cfg, launches, iters, quant=False):
+    """A bf16, int8 or fp8 serve: the cluster decode face once per
+    attention layer and decode iteration, ``decode_kernel`` never."""
+    face = K1C_DECODE[0] if quant else K1A[0]
+    check(launches[face] == iters * len(cfg.attention_layer_ids()) > 0,
+          f"{name}: {face} launched {launches[face]} times over {iters} "
+          f"decode iterations")
+    check(all(launches[k] == 0 for k in SPLIT_DECODE),
+          f"{name}: decode_kernel ran")
 
 
 def emit(phase: str, **fields) -> None:
@@ -410,7 +451,8 @@ def phase_build(ops):
     tc = tensor_core_instructions(ops.build, ops.SOURCES)
     table = {src: registers_spills(summary.get(src, []))
              for src in ops.SOURCES}
-    attention = {**table["paged_attention"], **table["flash_attention"]}
+    attention = {**table["paged_attention"], **table["paged_decode"],
+                 **table["flash_attention"]}
     worse = spills_beyond_hd128(attention)
     emit("build", seconds=round(seconds, 3), ptxas=summary,
          registers_spills=table, spills_beyond_hd128=worse,
@@ -425,7 +467,10 @@ def phase_build(ops):
               "K3's mma.sync and 3xTF32 faces have no HMMA")
         check(tc["paged_attention"]["HGMMA"] > 0,
               "K1b's wgmma prefill kernel has no HGMMA")
+        check(tc["paged_decode"]["HMMA"] > 0,
+              "K1a's cluster face has no HMMA")
     for src, kernel in (("paged_attention", "prefill_wgmma_kernel"),
+                        ("paged_decode", "decode_cluster_kernel"),
                         ("flash_attention", "flash_wgmma_kernel")):
         for name, row in table[src].items():
             if kernel in name:
@@ -743,8 +788,9 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
     # decode cuts each lane's pages into 9 parts and merges them (the
     # other checks' 32-page rows run one part); then its chunked prefill
     # under its window (K1b, K1c)
-    check(pa.split_count(MIXTRAL_BP, 4 * 8) > 1,
-          "K1a mixtral: the decode check runs no split")
+    check(pa.split_count(MIXTRAL_BP, 4 * 8) > 1
+          and pa.decode_plan(MIXTRAL_BP, 4 * 8, 16)["cluster"] > 1,
+          "K1a mixtral: the decode check runs no split or cluster")
     check_paged(pa, kvq, g, errs, 4, 32, 8, 128, MIXTRAL_BP,
                 list(MIXTRAL_LENS), [], [], "_mixtral")
     check_prefill_window(pa, kvq, g, errs)
@@ -810,8 +856,15 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
              for k in ("flash_wgmma", "flash_tile", "flash_f32_tc")}
     check(all(n > 0 for n in flash.values()),
           f"kernels: a flash face never ran: {flash}")
-    emit("kernels", max_abs_err=errs, prefill_launches=prefill,
-         flash_launches=flash,
+    # the decode face's two kernels each ran over float and int8/fp8 pools:
+    # the cluster face (bf16 queries), decode_kernel (f32 queries)
+    decode = {k: pa.LAUNCHES[k] - before[k]
+              for k in ("decode_cluster", "decode_quant_cluster", "decode",
+                        "decode_quant")}
+    check(all(n > 0 for n in decode.values()),
+          f"kernels: a decode kernel never ran: {decode}")
+    emit("kernels", max_abs_err=errs, decode_launches=decode,
+         prefill_launches=prefill, flash_launches=flash,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
     return errs
@@ -1011,7 +1064,7 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
     if name is None:
         name = "serve" if kv_dtype == "bf16" else f"serve_{kv_dtype}"
     quant = kv_dtype in QUANT
-    decode = "paged_attention_decode" + ("_quant" if quant else "")
+    decode = K1C_DECODE[0] if quant else K1A[0]   # the cluster face
     tok = rt["tokenizer"].get_tokenizer()
     problem = rt["evaluate"].make_problems(1, seed=SEED)[0]
     prompt = tok.encode(rt["arithmetic"].make_prompt(problem), add_bos=True)
@@ -1058,15 +1111,14 @@ def phase_serve(rt, ops, cfg, params, scorer, kv_dtype="bf16", chunk=None,
                   if not k.startswith("decode_graph")),
               f"{name}: a kernel launched on the MLA path: {launches}")
     else:
-        check(launches[decode] > 0, f"{decode} never launched")
+        check_decode_launches(name, cfg, launches, iters, quant)
         check(launches["step_score"] == iters,
               "K2 did not launch once per decode iteration")
     if quant:
         check(launches["paged_attention_prefill_quant_wgmma"] > 0
               and launches["paged_attention_prefill_quant"] == 0,
               "K1c's prefill face did not run its wgmma kernel")
-        check(launches["paged_attention_decode"] == 0
-              and k1b_launches(launches) == 0,
+        check(launches[K1A[0]] == 0 and k1b_launches(launches) == 0,
               "a float-pool kernel ran on a quantized pool")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
@@ -1291,9 +1343,10 @@ def phase_serve_recurrent(rt, ops, cfg, params, scorer, name):
     check(launches["ssm_decode"] == iters * cfg.num_layers,
           "ssm_decode did not run once per layer and iteration")
     n_attn = len(cfg.attention_layer_ids())
-    check(launches["paged_attention_decode"] == iters * n_attn,
-          "K1a did not run once per shared-attention invocation and "
-          "iteration")
+    check(launches[K1A[0]] == iters * n_attn
+          and launches["paged_attention_decode"] == 0,
+          "K1a's cluster face did not run once per shared-attention "
+          "invocation and iteration, or decode_kernel ran")
     check(res.num_pruned > 0, "STEP pruned nothing under pressure")
     check(res.num_preemptions == 0 and res.wait_s == 0.0,
           "STEP made a trace wait")
@@ -1310,7 +1363,7 @@ def phase_serve_recurrent(rt, ops, cfg, params, scorer, name):
            "launches": launches,
            "launches_per_iteration": {
                k: launches[k] / iters for k in
-               ("paged_attention_decode", "ssm_decode", "step_score")},
+               (K1A[0], "ssm_decode", "step_score")},
            "recurrent_state_bytes": state,
            "kv_block_bytes": E.kv_quant.pool_block_bytes(cfg, "bf16"),
            "max_memory_allocated": first["max_memory_allocated"],
@@ -1357,7 +1410,7 @@ def phase_kernel_vs_dense(rt, ops, cfg, params, scorer, name):
         launches = ops.launch_counts()
         check_result(res, engine)
         check((launches["ssm_decode"] > 0) == use_kernel
-              and (launches["paged_attention_decode"] > 0) == use_kernel,
+              and (k1a_launches(launches) > 0) == use_kernel,
               f"{name}: kernel launches do not follow use_kernel")
         del engine
         gc.collect()
@@ -1582,6 +1635,7 @@ def phase_batched(rt, ops, cfg, params, scorer):
     check(launches["paged_attention_prefill_wgmma"] > 0
           and launches["paged_attention_prefill"] == 0,
           "K1b did not run its wgmma prefill kernel")
+    check_decode_launches("batched", cfg, launches, first["iterations"])
     check(cached[3] > 0, "no prefix-cache hit on the shared prompt")
     total = sum(res.total_tokens for res in results)
     out = {"requests": 4, "traces": 8, "prompt_tokens": [len(p) for p in
@@ -1677,6 +1731,8 @@ def phase_batched_mixtral(rt, ops, cfg, params, scorer):
     check(launches["paged_attention_prefill_wgmma"] > 0
           and launches["paged_attention_prefill"] == 0,
           "K1b did not run its wgmma prefill kernel")
+    check_decode_launches("batched_mixtral", cfg, launches,
+                          first["iterations"])
     check(k1b_launches(dense["launches"]) == 0,
           "the dense engine launched K1b")
     k, d = first["results"][0], dense["results"][0]
@@ -2062,8 +2118,21 @@ def phase_train(rt, ops, cfg, params):
     return out
 
 
+class Timing(float):
+    """A median device ms, with the fastest and slowest replay beside it
+    (``lo``, ``hi``)."""
+
+    def __new__(cls, times):
+        times = sorted(times)
+        self = super().__new__(cls, times[len(times) // 2])
+        self.lo, self.hi = times[0], times[-1]
+        return self
+
+
 def time_cuda(fn, reps=30, warmup=3):
-    """Mean device ms per call of ``fn``. The call is captured once in a
+    """Median device ms per call of ``fn`` (a :class:`Timing`: the
+    fastest and slowest of the ``reps`` replays beside it; a median drops
+    the replay that a host stall lengthens). The call is captured once in a
     CUDA graph and each replay is timed with CUDA events, so the time is
     the device's and not the host's (a wrapper's Python checks, or the
     plain version's op-by-op launches, would otherwise sit between the
@@ -2084,7 +2153,7 @@ def time_cuda(fn, reps=30, warmup=3):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(200_000)   # GPU cycles
@@ -2094,8 +2163,18 @@ def time_cuda(fn, reps=30, warmup=3):
         graph.replay()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return Timing(times)
+
+
+def time_empty():
+    """The floor of every timed row: one CTA that does nothing (PyTorch's
+    spin kernel asked for 0 cycles), timed as :func:`time_cuda` times a
+    kernel."""
+    return dict(ms=time_cuda(lambda: torch.cuda._sleep(0)), plain_ms=None,
+                library_ms=None, library="none",
+                shape="one CTA of one thread, no work", bytes=0, flops=0,
+                dtype=torch.bfloat16)
 
 
 def device_split(fn):
@@ -2167,7 +2246,9 @@ def bound_ms(nbytes, flops, dtype):
 
 def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
     """K1a (bf16 pool) or K1c (int8/fp8 pool) with bf16 queries over B
-    lanes of ``lens``; the library yardstick is SDPA over K/V gathered
+    lanes of ``lens``: the face the route takes (``ms``) and the split
+    face, ``decode_kernel``, on the same inputs (``split_ms``); the
+    library yardstick is SDPA over K/V gathered
     (and dequantized) before the timed call. Bytes: the queries and the
     output, the block tables and lengths, and each live page of K and V
     once (codes plus their f32 scale per slot and kv head)."""
@@ -2192,9 +2273,12 @@ def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
     q4 = q[:, :, None, :]
     pages = sum(-(-n // page) for n in lens)
     slot_bytes = hd + 4 if quant else 2 * hd
+    G = H // KVH
     row = dict(
         ms=time_cuda(lambda: pa.paged_attention(q, kp, vp, bt, cl,
                                                 scale=scale, **scales)),
+        split_ms=time_cuda(lambda: pa.paged_attention_split(
+            q, kp, vp, bt, cl, scale=scale, **scales)),
         plain_ms=time_cuda(lambda: pa.paged_attention_plain(
             q, kp, vp, bt, cl, scale, scales.get("k_scale"),
             scales.get("v_scale"))),
@@ -2202,6 +2286,8 @@ def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
             q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
         library="SDPA over K/V gathered"
                 + (" and dequantized" if quant else "") + " beforehand",
+        face=pa.decode_face(q.dtype, kp.dtype, hd),
+        plan=pa.decode_plan(bp, B * KVH * -(-G // pa.CLUSTER_ROWS), page),
         splits=pa.split_count(bp, B * KVH),
         shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
               f"{lens[-1]} bf16 q, {kv_dtype} pool",
@@ -2372,7 +2458,8 @@ def time_score(ss, g, B, D, split=False):
 def phase_times(pa, ss, fa, sd, kvq, smd):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf = torch.bfloat16
-    rows = {}
+    # the floor every row reads against: a launch that does nothing
+    rows = {"empty_kernel": time_empty()}
     # K1 at the serve phases' decode shape: 16 lanes over 80-block pool
     # rows of 32 pages, lengths across the prompt + 128 tokens range;
     # qwen3 (H 32, KVH 8, hd 128) and zamba2 (H = KVH = 32, hd 80)
@@ -2478,6 +2565,9 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 r.pop("dtype"))
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        for k in ("ms", "split_ms", "plain_ms", "library_ms"):
+            if isinstance(r.get(k), Timing):   # the fastest and slowest
+                r[k + "_range"] = [r[k].lo, r[k].hi]
     emit("times", **rows)
     return rows
 
@@ -2530,9 +2620,10 @@ def phase_dense_archs(rt, ops):
                                          f"dense_archs {arch}", calls=1)
         launches = first["launches"]
         iters = launches["step_score"]
-        check(iters > 0 and launches["paged_attention_decode"]
-              == iters * cfg.num_layers,
-              f"{arch}: K1a did not run once per layer and iteration")
+        check(iters > 0 and launches[K1A[0]] == iters * cfg.num_layers
+              and launches["paged_attention_decode"] == 0,
+              f"{arch}: K1a's cluster face did not run once per layer and "
+              f"iteration, or decode_kernel ran")
         out[arch] = {
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
@@ -2707,7 +2798,7 @@ def phase_decode_seamless(rt, ops, cfg, params):
     enc0 = 0.02 * torch.randn(B, T, cfg.d_model, generator=g, device="cuda")
     tokens = torch.randint(0, V, (B, P + n), generator=g, device="cuda",
                            dtype=torch.int32)
-    launches = {"paged_attention_decode": 0}
+    launches = dict.fromkeys(K1A, 0)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         p = params if dtype == torch.bfloat16 else to_f32(params)
@@ -2746,10 +2837,14 @@ def phase_decode_seamless(rt, ops, cfg, params):
                                     use_kernel=True)["logits"]
                 torch.cuda.synchronize()
                 kernel_s += time.perf_counter() - t0
-                k1a = ops.launch_counts()["paged_attention_decode"]
-                check(k1a == cfg.num_layers,
-                      f"decode_seamless {key} step {i}: {k1a} K1a launches")
-                launches["paged_attention_decode"] += k1a
+                # bf16 takes the cluster face, f32 decode_kernel
+                face = K1A[0] if dtype == torch.bfloat16 else K1A[1]
+                k1a = ops.launch_counts()[face]
+                check(k1a == k1a_launches(ops.launch_counts())
+                      == cfg.num_layers,
+                      f"decode_seamless {key} step {i}: {k1a} {face} "
+                      f"launches")
+                launches[face] += k1a
                 got, want = (x[:, :V].float() for x in (got, want))
                 check(bool(torch.isfinite(got).all()),
                       f"decode_seamless {key} step {i}: non-finite")
@@ -2941,10 +3036,12 @@ def phase_launch_serve(rt, ops):
               and launches["decode_graph_captures"] > 0,
               f"launch_serve {name}: no decode graph replayed")
         if name != "sc":
-            check(launches["paged_attention_decode"
-                           + ("_quant" if name == "step_int8" else "")] > 0
+            check(launches[K1C_DECODE[0] if name == "step_int8"
+                           else K1A[0]] > 0
+                  and all(launches[k] == 0 for k in SPLIT_DECODE)
                   and launches["step_score"] > 0,
-                  f"launch_serve {name}: K1a or K2 never launched")
+                  f"launch_serve {name}: K1a's cluster face or K2 never "
+                  f"launched, or decode_kernel ran")
     sc, step = runs["sc"], runs["step"]
     check(sc["preemptions"] > 0 and sc["wait_s"] > 0,
           f"launch_serve sc: preempt {sc['preemptions']} wait "
@@ -2990,7 +3087,7 @@ def phase_examples(ops):
     launches = ops.launch_counts()
     out = {"argv": " ".join(EXAMPLE_ARGV), "wall_s": wall,
            "launches": {k: launches[k] for k in (
-               "paged_attention_decode", *K1B, "step_score",
+               *K1A, *K1B, "step_score",
                "decode_graph_captures", "decode_graph_replays")}}
     for method in ("sc", "step"):
         r = res[method]
@@ -3000,7 +3097,7 @@ def phase_examples(ops):
         out[method] = {"answer": r.answer, "latency_s": r.latency_s,
                        "wait_s": r.wait_s, "pruned": r.num_pruned,
                        "preemptions": r.num_preemptions}
-    for name in ("paged_attention_decode", "step_score"):
+    for name in (K1A[0], "step_score"):
         check(launches[name] > 0, f"examples: {name} never launched")
     check(k1b_launches(launches) > 0, "examples: K1b never launched")
     emit("examples", **out)
@@ -3499,8 +3596,7 @@ def phase_serve_mesh(rt):
                 name = f"serve_mesh {key} {job} rank {r}"
                 lt = got["launches"]
                 check(got["use_kernel"], f"{name}: not on the kernel path")
-                check(lt["paged_attention_decode"] > 0,
-                      f"{name}: K1a never launched")
+                check(k1a_launches(lt) > 0, f"{name}: K1a never launched")
                 check(k1b_launches(lt) > 0,
                       f"{name}: K1b never launched in the chunked prefill")
                 check(lt["decode_graph_captures"] == 0
@@ -3548,7 +3644,7 @@ def phase_serve_mesh(rt):
                     "wall_ms_per_iteration": got["wall_ms_per_iteration"],
                     "max_memory_allocated": got["max_memory_allocated"]})
                 if key == "1x2" and job == "full":
-                    decode_mesh += lt["paged_attention_decode"]
+                    decode_mesh += lt[K1A[0]]
                     prefill_mesh += lt["paged_attention_prefill_wgmma"]
             entry[job] = {"largest_first_logit": amax, "ranks": rows}
         out["meshes"][key] = entry
@@ -3556,7 +3652,7 @@ def phase_serve_mesh(rt):
                          "first_logits_two_ranks_relative": MESH_LOGIT_TOL,
                          "one_rank": "bitwise"}
     emit("serve_mesh", **out)
-    return {"paged_attention_decode": decode_mesh,
+    return {K1A[0]: decode_mesh,
             "paged_attention_prefill_wgmma": prefill_mesh}
 
 
@@ -3683,11 +3779,13 @@ def main() -> int:
     src = "src/repro_torch/csrc/"
     paged = (src + "paged_attention.cu",
              "src/repro/kernels/paged_attention.py:62")
+    # K1a/K1c's decode rows: the cluster face, the main paths' decode
+    cluster = (src + "paged_decode.cu",
+               "src/repro/kernels/paged_attention.py:62")
     meta = {
-        "paged_attention_decode": (*paged, "decode_bfloat16",
-                                   serve["launches"]["paged_attention_decode"]
-                                   + batched["launches"][
-                                       "paged_attention_decode"]),
+        "paged_attention_decode": (*cluster, "decode_bfloat16",
+                                   serve["launches"][K1A[0]]
+                                   + batched["launches"][K1A[0]]),
         "paged_attention_prefill": (*paged, "prefill_bfloat16",
                                     batched["launches"][
                                         "paged_attention_prefill_wgmma"]),
@@ -3701,9 +3799,9 @@ def main() -> int:
         # mixtral-8x7b's decode (timed and checked at batched_mixtral's
         # 288-page rows), windowed paths and width
         "paged_attention_decode_mixtral": (
-            *paged, "decode_mixtral_bfloat16",
-            serve_moe["launches"]["paged_attention_decode"]
-            + batched_moe["launches"]["paged_attention_decode"]),
+            *cluster, "decode_mixtral_bfloat16",
+            serve_moe["launches"][K1A[0]]
+            + batched_moe["launches"][K1A[0]]),
         "paged_attention_prefill_swa": (
             *paged, "prefill_swa_bfloat16",
             batched_moe["launches"]["paged_attention_prefill_wgmma"]),
@@ -3713,8 +3811,8 @@ def main() -> int:
                                 forward_moe["launches"]["flash_attention"]),
         # seamless-m4t's decoder: 16 query heads over 16 at hd 64
         "paged_attention_decode_seamless": (
-            *paged, "decode_seamless_bfloat16",
-            decode_s2s["launches"]["paged_attention_decode"]),
+            *cluster, "decode_seamless_bfloat16",
+            decode_s2s["launches"][K1A[0]]),
         "flash_attention_seamless": (src + "flash_attention.cu",
                                      "src/repro/kernels/flash_attention.py:38",
                                      "flash_seamless_bfloat16",
@@ -3741,16 +3839,16 @@ def main() -> int:
         # the instances of this slice's paths: zamba2 (hd 80, N = 64) and
         # granite-20b (48 query heads over one kv head)
         "paged_attention_decode_hd80": (
-            *paged, "decode_hd80_bfloat16",
-            serve_hyb["launches"]["paged_attention_decode"]),
+            *cluster, "decode_hd80_bfloat16",
+            serve_hyb["launches"][K1A[0]]),
         "paged_attention_decode_g48": (
-            *paged, "decode_g48_bfloat16",
-            dense["granite-20b"]["launches"]["paged_attention_decode"]),
+            *cluster, "decode_g48_bfloat16",
+            dense["granite-20b"]["launches"][K1A[0]]),
         # a rank of serve_mesh's (1, 2) mesh (half of qwen3's heads), its
         # launches on both ranks at full width
         "paged_attention_decode_mesh": (
-            *paged, "decode_mesh_bfloat16",
-            mesh_run["paged_attention_decode"]),
+            *cluster, "decode_mesh_bfloat16",
+            mesh_run[K1A[0]]),
         "paged_attention_prefill_mesh": (
             *paged, "prefill_mesh_bfloat16",
             mesh_run["paged_attention_prefill_wgmma"]),
@@ -3770,21 +3868,23 @@ def main() -> int:
     # the serving launcher's model (H 4, KVH 2, hd 64, D 256) on
     # launch_serve's runs
     lt = launch["launches"]
-    for face, count in (("decode", "paged_attention_decode"),
+    for face, count in (("decode", K1A[0]),
                         ("prefill", "paged_attention_prefill_wgmma"),
-                        ("decode_int8", "paged_attention_decode_quant"),
+                        ("decode_int8", K1C_DECODE[0]),
                         ("prefill_int8",
                          "paged_attention_prefill_quant_wgmma")):
         meta[f"paged_attention_{face}_launch"] = (
-            *paged, f"{face}_launch_bfloat16", lt[count])
+            *(cluster if face.startswith("decode") else paged),
+            f"{face}_launch_bfloat16", lt[count])
     meta["step_score_d256"] = (src + "step_score.cu",
                                "src/repro/kernels/step_score.py:30",
                                "score_d256_bfloat16", lt["step_score"])
     for kv_dtype, run in quant.items():
-        for face, count in (("decode", "decode_quant"),
+        for face, count in (("decode", "decode_quant_cluster"),
                             ("prefill", "prefill_quant_wgmma")):
             meta[f"paged_attention_{face}_{kv_dtype}"] = (
-                *paged, f"{face}_{kv_dtype}_bfloat16",
+                *(cluster if face == "decode" else paged),
+                f"{face}_{kv_dtype}_bfloat16",
                 run["launches"][f"paged_attention_{count}"])
     kernels = []
     for name, (source, replaces, err_key, launches) in meta.items():

@@ -24,7 +24,9 @@
 // the limit. So the design keeps everything but the page reads on chip
 // and puts as many page bytes in flight as it can.
 //
-// Decode (K1a, K1c decode), the layout of vLLM's PagedAttention:
+// Decode (K1a, K1c decode) with f32 queries or an f32 pool, or at hd 32
+//   (bf16 queries over a bf16, int8 or fp8 pool at hd 64/80/128 take the
+//   cluster face of paged_decode.cu), the layout of vLLM's PagedAttention:
 //   grid (B*KVH, splits, ceil(G / NG)), 4 warps. The G query rows of the
 //   kv head (NG of them per CTA) stay in registers as f32. The warps of a
 //   CTA take interleaved pages of the lane; a warp reads a slot row with

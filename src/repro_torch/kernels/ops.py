@@ -28,8 +28,8 @@ from repro_torch.kernels.ssm_decode import ssm_decode  # noqa: F401
 from repro_torch.kernels.step_score import step_score  # noqa: F401
 
 # CUDA sources under csrc/, one shared library each
-SOURCES = ("paged_attention", "step_score", "flash_attention", "ssd_scan",
-           "ssm_decode")
+SOURCES = ("paged_attention", "paged_decode", "step_score",
+           "flash_attention", "ssd_scan", "ssm_decode")
 
 # public name -> (the wrapper module's LAUNCHES dict, its key)
 _KERNELS = {
@@ -40,6 +40,9 @@ _KERNELS = {
     "paged_attention_prefill_wgmma": (_paged.LAUNCHES, "prefill_wgmma"),
     "paged_attention_prefill_quant_wgmma": (_paged.LAUNCHES,
                                             "prefill_quant_wgmma"),
+    "paged_attention_decode_cluster": (_paged.LAUNCHES, "decode_cluster"),
+    "paged_attention_decode_quant_cluster": (_paged.LAUNCHES,
+                                             "decode_quant_cluster"),
     "step_score": (_score.LAUNCHES, "step_score"),
     "flash_attention": (_flash.LAUNCHES, "flash"),
     "flash_attention_wgmma": (_flash.LAUNCHES, "flash_wgmma"),

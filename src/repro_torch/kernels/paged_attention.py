@@ -1,5 +1,6 @@
 """Paged attention over the paged KV pool: the plain PyTorch version and
-the wrapper of the hand-written CUDA kernel (``csrc/paged_attention.cu``).
+the wrappers of the hand-written CUDA kernels (``csrc/paged_attention.cu``
+and, for the decode face, ``csrc/paged_decode.cu``).
 
 The kernel replaces the TPU kernel
 ``src/repro/kernels/paged_attention.py::_mq_paged_kernel`` on both of
@@ -20,10 +21,19 @@ v_scale_j`` before the product with the codes) where the plain version
 dequantizes the gathered pages; the two agree up to f32 rounding order.
 The chunk's own K/V is exact and never scaled.
 
-The decode kernel may cut each lane's page range into parts whose
-partial softmax states are merged by log-sum-exp (split-K);
+The decode face has two kernels, chosen by :func:`decode_face` from the
+dtypes and the head dim alone. bf16 queries over a bf16, int8 or fp8 pool
+at hd 64, 80 or 128 take the cluster face (``csrc/paged_decode.cu``): a
+thread-block cluster per (lane, kv head) shares the lane's 16-slot chunks
+(:func:`decode_plan`, from shapes alone), folds them on the tensor cores
+with P rounded to bf16, and merges its CTAs' partial softmax states
+through distributed shared memory in the same launch;
+:func:`paged_attention_cluster_plain` is its algebra in PyTorch. f32
+queries or pools, and hd 32, take ``decode_kernel``
+(:func:`paged_attention_split`), which cuts each lane's page range into
+parts merged by log-sum-exp in a second launch (split-K);
 :func:`split_count` picks the number of parts from shapes alone, and
-:func:`paged_attention_split_plain` is the same algebra in PyTorch. On
+:func:`paged_attention_split_plain` is the same algebra. On
 the tensor-core prefill routes the kernel rounds P to bf16 before P.V,
 as :func:`tiled_softmax_pv` does with ``p_dtype=torch.bfloat16``.
 
@@ -44,8 +54,9 @@ the kernel or raises: there is no fallback. Each kernel launch adds one
 to ``LAUNCHES[face]`` (``decode``/``prefill`` over a float pool,
 ``decode_quant``/``prefill_quant`` over a quantized one), except that a
 launch of the wgmma prefill kernel adds one to ``prefill_wgmma`` (or
-``prefill_quant_wgmma``) instead, so a run shows which prefill kernel
-ran.
+``prefill_quant_wgmma``) and one of the cluster decode face to
+``decode_cluster`` (or ``decode_quant_cluster``) instead, so a run shows
+which kernel of each face ran.
 """
 from __future__ import annotations
 
@@ -58,7 +69,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 LAUNCHES = {"decode": 0, "prefill": 0, "decode_quant": 0,
-            "prefill_quant": 0, "prefill_wgmma": 0, "prefill_quant_wgmma": 0}
+            "prefill_quant": 0, "prefill_wgmma": 0, "prefill_quant_wgmma": 0,
+            "decode_cluster": 0, "decode_quant_cluster": 0}
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 # decode split-K: aim at this many CTAs (4 per SM of the H100's 132) and
 # give each part at least MIN_SPLIT_PAGES pages of the block table
@@ -70,10 +82,24 @@ HEAD_DIMS = (32, 64, 80, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 # keys per tile of the prefill kernels
 PREFILL_BLOCK = 64
+# the cluster decode face (csrc/paged_decode.cu, :func:`decode_plan`):
+# head dims, slots per chunk (one k-step of P.V), warp groups per CTA,
+# query rows per CTA (three 16-row tiles), the cap on a cluster (the
+# portable size), the CTAs aimed at (2 per SM of the H100's 132: a
+# cluster's CTAs must fit one GPC at once), its ring of chunks where a
+# CTA's share of a full row does not fit (one stage per warp group)
+CLUSTER_HEAD_DIMS = (64, 80, 128)
+DECODE_CHUNK = 16
+WARP_GROUPS = 4
+CLUSTER_ROWS = 48
+MAX_CLUSTER = 8
+CLUSTER_TARGET_CTAS = 2 * 132
+MAX_STAGES = 4
 # pool dtype -> the kernel's pool-type code (csrc/paged_attention.cu)
 _POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
 _lib = None
+_cluster_lib = None
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +417,141 @@ def tiled_softmax_pv(scores: torch.Tensor, mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the cluster decode face (csrc/paged_decode.cu): its route, its schedule
+# from shapes on the host, and its algebra in PyTorch
+# ---------------------------------------------------------------------------
+
+def decode_face(q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                hd: int) -> str:
+    """The decode kernel for queries of ``q_dtype`` over a pool of
+    ``pool_dtype`` at head dim ``hd``, from dtypes and head dim alone:
+    "cluster" (``csrc/paged_decode.cu``) for bf16 queries over a bf16,
+    int8 or fp8 pool at hd 64, 80 or 128; "split" (``decode_kernel`` of
+    ``csrc/paged_attention.cu``, split-K and a merge launch) for f32
+    queries or an f32 pool, and hd 32."""
+    if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
+            and hd in CLUSTER_HEAD_DIMS):
+        return "cluster"
+    return "split"
+
+
+def decode_plan(bp: int, heads: int, page: int) -> dict:
+    """The cluster face's launch, from the block-table width ``bp``,
+    ``heads`` (clusters: B * KVH * head groups of at most CLUSTER_ROWS)
+    and the page size alone, never the device lengths (reading them
+    would cost a sync per layer and break graph capture): ``cluster`` S,
+    the CTAs that share one (lane, kv head); ``stages``, the shared-memory
+    ring of 16-slot chunks each CTA keeps in flight (its whole share of a
+    full row where that is at most MAX_STAGES chunks, else MAX_STAGES: a
+    ring that wraps holds one stage per warp group, so that each stage
+    is always folded by the same group, in order); ``chunks``, the
+    16-slot chunks of a full row. Chunk c of a lane goes to the CTA of
+    rank c % S, as its (c // S)-th chunk; the k-th chunk of a CTA to its
+    warp group k % 4 (:func:`decode_shares`). The lengths only decide
+    which chunks hold a live slot."""
+    chunks = -(-bp * page // DECODE_CHUNK)
+    S = max(1, min(MAX_CLUSTER, chunks, CLUSTER_TARGET_CTAS // heads))
+    return {"cluster": S, "stages": min(MAX_STAGES, -(-chunks // S)),
+            "chunks": chunks}
+
+
+def decode_shares(plan: dict) -> list:
+    """Per CTA rank, per warp group, the chunks it folds in order (all
+    chunks of a full row; past a lane's length a chunk is skipped)."""
+    S, n = plan["cluster"], plan["chunks"]
+    return [[list(range(r, n, S))[w::WARP_GROUPS]
+             for w in range(WARP_GROUPS)] for r in range(S)]
+
+
+def _fold(state, s, valid, v, vs, scale, p_dtype):
+    """One warp's online softmax over a chunk: s [..., G, 16] raw scores
+    (times k_scale), valid [..., 1, 16], v [..., 16, hd], vs [..., 1, 16]
+    or None. The running max and l in f32 from the unrounded p; p times
+    the v scale rounded to ``p_dtype`` before P.V."""
+    m, l, acc = state
+    s = torch.where(valid, s, NEG_INF)
+    mx = torch.maximum(m, s.amax(-1))
+    base = torch.where(mx == NEG_INF, 0.0, mx)
+    alpha = torch.exp((m - base) * scale)
+    p = torch.exp((s - base[..., None]) * scale)
+    l = l * alpha + p.sum(-1)
+    if vs is not None:
+        p = p * vs
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    return mx, l, acc * alpha[..., None] + p @ v
+
+
+def _merge(states, scale):
+    """Merge (m, l, acc) states into one by their common max, in order."""
+    M = torch.stack([st[0] for st in states]).amax(0)
+    out_l = out_acc = 0.0
+    for m, l, acc in states:
+        e = torch.exp((m - M) * scale)
+        out_l = out_l + e * l
+        out_acc = out_acc + e[..., None] * acc
+    return M, out_l, out_acc
+
+
+def paged_attention_cluster_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  cache_lens: torch.Tensor, scale: float,
+                                  k_scale: Optional[torch.Tensor] = None,
+                                  v_scale: Optional[torch.Tensor] = None,
+                                  p_dtype: Optional[torch.dtype] =
+                                  torch.bfloat16) -> torch.Tensor:
+    """The cluster face's algebra (``csrc/paged_decode.cu``): each lane's
+    row cut into 16-slot chunks, dealt to the CTAs of a cluster and their
+    four warp groups by :func:`decode_plan`; each warp group an online
+    softmax over its chunks, in order (scores of the codes times
+    ``k_scale``; p times ``v_scale`` and rounded to ``p_dtype`` before
+    P.V, l from the unrounded p); the warp groups of a CTA merged as
+    (0 with 2) with (1 with 3); the CTAs merged in rank order, divided by
+    l (a row no slot reaches emits zeros). Same signature and result as
+    :func:`paged_attention_plain` (``p_dtype=None`` keeps p in f32)."""
+    B, H, hd = q.shape
+    NB, page, KVH, _ = k_pool.shape
+    bp = block_tables.shape[1]
+    G = H // KVH
+    plan = decode_plan(bp, B * KVH * -(-G // CLUSTER_ROWS), page)
+    n = plan["chunks"] * DECODE_CHUNK
+    k = gather_pages(k_pool, block_tables).float().transpose(1, 2)
+    v = gather_pages(v_pool, block_tables).float().transpose(1, 2)
+    pad = n - k.shape[2]                      # a partial last chunk
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    s = q.reshape(B, KVH, G, hd).float() @ k.transpose(-1, -2)
+    vs = None
+    if k_scale is not None:
+        ks, vs = (torch.nn.functional.pad(
+            gather_pages(t, block_tables).transpose(1, 2), (0, pad))[:, :,
+                                                                    None]
+            for t in (k_scale, v_scale))     # [B, KVH, 1, n]
+        s = s * ks
+    valid = (torch.arange(n, device=q.device)
+             < cache_lens.clamp(max=bp * page)[:, None])[:, None, None, :]
+    empty = (torch.full((B, KVH, G), NEG_INF, device=q.device),
+             q.new_zeros(B, KVH, G, dtype=torch.float32),
+             q.new_zeros(B, KVH, G, hd, dtype=torch.float32))
+    ctas = []
+    for groups in decode_shares(plan):
+        warps = []
+        for chunks in groups:
+            state = empty
+            for c in chunks:
+                cut = slice(c * DECODE_CHUNK, (c + 1) * DECODE_CHUNK)
+                state = _fold(state, s[..., cut], valid[..., cut],
+                              v[:, :, cut], None if vs is None
+                              else vs[..., cut], scale, p_dtype)
+            warps.append(state)
+        ctas.append(_merge([_merge([warps[0], warps[2]], scale),
+                            _merge([warps[1], warps[3]], scale)], scale))
+    _, l, acc = _merge(ctas, scale)
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.to(q.dtype).reshape(B, H, hd)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
@@ -406,22 +567,30 @@ def _library():
     return _lib
 
 
+def _cluster_library():
+    global _cluster_lib
+    if _cluster_lib is None:
+        lib = build.load("paged_decode")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.repro_paged_decode.argtypes = (
+            [p] * 8 + [i] * 7 + [ctypes.c_float, i, i, i, p])
+        lib.repro_paged_decode.restype = i
+        _cluster_lib = lib
+    return _cluster_lib
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
 
 
-def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
-            k_scale, v_scale, *, scale: float, window: Optional[int],
-            rows: int = 0) -> torch.Tensor:
-    """Check the operands and launch on the current stream. q
-    [B, C, H, hd] (decode: C = 1); own_k/own_v [B, C, KVH, hd] or None
-    (decode); k_scale/v_scale [NB, page, KVH] f32 or None (float pool);
-    ``rows`` > 0 (prefill) takes the wgmma kernel (:func:`prefill_rows`).
-    The kernel reads the G query heads of each kv head in place."""
+def _check(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
+           k_scale, v_scale) -> None:
+    """Raise on operands the kernels do not take. q [B, C, H, hd]
+    (decode: C = 1); own_k/own_v [B, C, KVH, hd] or None (decode);
+    k_scale/v_scale [NB, page, KVH] f32 or None (float pool)."""
     B, C, H, hd = q.shape
     NB, page, KVH, pool_hd = k_pool.shape
-    bp = block_tables.shape[1]
     has_own = own_k is not None
     has_scales = k_scale is not None
     tensors = [q, k_pool, v_pool, block_tables, lens]
@@ -458,6 +627,22 @@ def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
         _require(own_k.shape == (B, C, KVH, hd) and own_v.shape == own_k.shape
                  and own_k.dtype == q.dtype and own_v.dtype == q.dtype,
                  "own K/V must be [B, C, KVH, hd] in the query dtype")
+
+
+def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
+            k_scale, v_scale, *, scale: float, window: Optional[int],
+            rows: int = 0) -> torch.Tensor:
+    """Check the operands and launch ``csrc/paged_attention.cu`` on the
+    current stream: the split decode face (own_k None) or a prefill
+    kernel; ``rows`` > 0 (prefill) takes the wgmma kernel
+    (:func:`prefill_rows`). The kernel reads the G query heads of each kv
+    head in place."""
+    _check(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
+           k_scale, v_scale)
+    B, C, H, hd = q.shape
+    NB, page, KVH, _ = k_pool.shape
+    bp = block_tables.shape[1]
+    has_own = own_k is not None
     if rows:   # TMA tensor maps: every stride above the innermost dim of
         #        q, the pools and the own K/V a multiple of 16 bytes
         _require(has_own and hd * q.element_size() % 16 == 0
@@ -487,6 +672,34 @@ def _launch(q, k_pool, v_pool, block_tables, lens, nvalid, own_k, own_v,
     return out
 
 
+def _launch_cluster(q, k_pool, v_pool, block_tables, lens, k_scale,
+                    v_scale, *, scale: float) -> torch.Tensor:
+    """Check the operands and launch the cluster decode face
+    (``csrc/paged_decode.cu``) on the current stream: q [B, H, hd] bf16,
+    at the cluster and ring of :func:`decode_plan`."""
+    _check(q[:, None], k_pool, v_pool, block_tables, lens, None, None, None,
+           k_scale, v_scale)
+    B, H, hd = q.shape
+    NB, page, KVH, _ = k_pool.shape
+    bp = block_tables.shape[1]
+    G = H // KVH
+    _require(page == 8 or page % DECODE_CHUNK == 0,
+             f"the cluster decode takes pages of 8 or a multiple of 16 "
+             f"slots, not {page}")
+    plan = decode_plan(bp, B * KVH * -(-G // CLUSTER_ROWS), page)
+    out = torch.empty_like(q)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _cluster_library().repro_paged_decode(
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables), ptr(lens),
+        ptr(k_scale), ptr(v_scale), ptr(out), B, KVH, G, bp, page, hd,
+        _POOL_KINDS[k_pool.dtype], scale, plan["cluster"], plan["stages"],
+        NB, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention cluster decode launch failed: "
+                           f"CUDA error {err}")
+    return out
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     cache_lens: torch.Tensor, *, scale: float,
@@ -495,10 +708,36 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     ) -> torch.Tensor:
     """Decode face: q [B, H, hd]; one layer's pools [NB, page, KVH, hd];
     block_tables [B, bp] i32; cache_lens [B] i32; k_scale/v_scale
-    [NB, page, KVH] f32 for an int8/fp8 pool. Returns [B, H, hd]."""
+    [NB, page, KVH] f32 for an int8/fp8 pool. Returns [B, H, hd]. On a
+    CUDA tensor it launches the kernel :func:`decode_face` picks."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      cache_lens, scale, k_scale, v_scale)
+    if decode_face(q.dtype, k_pool.dtype, q.shape[-1]) == "split":
+        return paged_attention_split(q, k_pool, v_pool, block_tables,
+                                     cache_lens, scale=scale,
+                                     k_scale=k_scale, v_scale=v_scale)
+    out = _launch_cluster(q.contiguous(), k_pool, v_pool, block_tables,
+                          cache_lens, k_scale, v_scale, scale=scale)
+    LAUNCHES["decode_cluster" if k_scale is None
+             else "decode_quant_cluster"] += 1
+    return out
+
+
+def paged_attention_split(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          cache_lens: torch.Tensor, *, scale: float,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The split decode face, ``decode_kernel``, for any operands
+    :func:`paged_attention` takes: what it runs for f32 queries or pools
+    and at hd 32; called directly, it times the two faces on one input.
+    On a CPU tensor, its algebra (:func:`paged_attention_split_plain`)."""
+    if q.device.type == "cpu":
+        return paged_attention_split_plain(q, k_pool, v_pool, block_tables,
+                                           cache_lens, scale, k_scale,
+                                           v_scale)
     out = _launch(q.contiguous()[:, None], k_pool, v_pool, block_tables,
                   cache_lens, None, None, None, k_scale, v_scale,
                   scale=scale, window=None)

@@ -58,6 +58,16 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _decode_count(q, pool, quant):
+    """The launch counter of the decode kernel that ``decode_face`` picks:
+    the cluster face for bf16 queries over a bf16/int8/fp8 pool at hd
+    64/80/128, else ``decode_kernel``."""
+    face = "decode_quant" if quant else "decode"
+    if pa.decode_face(q.dtype, pool.dtype, q.shape[-1]) == "cluster":
+        face += "_cluster"
+    return f"paged_attention_{face}"
+
+
 def _pools(g, B, bp, KVH, hd, dtype, page=16):
     NB = B * bp + 1
     kp = torch.randn(NB, page, KVH, hd, generator=g, device="cuda")
@@ -185,6 +195,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "paged_attention_prefill_quant": 0,
                                    "paged_attention_prefill_wgmma": 0,
                                    "paged_attention_prefill_quant_wgmma": 0,
+                                   "paged_attention_decode_cluster": 0,
+                                   "paged_attention_decode_quant_cluster": 0,
                                    "step_score": 0, "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_tile": 0,
@@ -221,7 +233,7 @@ def test_decode_quant_kernel_matches_plain(gen, kv_dtype, dtype, hd, KVH,
                              v_scale=vs)
     want = pa.paged_attention_plain(q, kq, vq, bt, lens, scale, ks, vs)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["paged_attention_decode_quant"] == 1
+    assert ops.launch_counts()[_decode_count(q, kq, True)] == 1
     assert got.dtype == dtype and bool((got[0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -258,12 +270,14 @@ POOLS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
 def test_decode_kernel_long_rows_split_pages(gen, pool, page, hd, KVH, G):
     """Decode over 256-page block-table rows: lengths 0, 1, a page
     boundary, a full row and up to 4096 slots, so the page range of each
-    lane is cut into parts (split-K) and merged."""
+    lane is cut into parts (split-K, or the CTAs of a cluster) and
+    merged."""
     B, bp = 6, 256
     full = bp * page
     lens = torch.tensor([0, 1, page, 3 * page + 1, full, min(4096, full)
                          - 5], dtype=torch.int32, device="cuda")
     assert pa.split_count(bp, B * KVH) > 1
+    assert pa.decode_plan(bp, B * KVH, page)["cluster"] > 1
     dtype = torch.float32 if pool == "f32" else torch.bfloat16
     q = torch.randn(B, KVH * G, hd, generator=gen, device="cuda").to(dtype)
     scales = {}
@@ -279,8 +293,7 @@ def test_decode_kernel_long_rows_split_pages(gen, pool, page, hd, KVH, G):
                                     scales.get("k_scale"),
                                     scales.get("v_scale"))
     torch.cuda.synchronize()
-    face = "decode_quant" if scales else "decode"
-    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert ops.launch_counts()[_decode_count(q, kp, bool(scales))] == 1
     assert bool((got[0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -946,9 +959,11 @@ def _any_pools(g, B, bp, KVH, hd, pool, page=16):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", [32, 80])
 def test_decode_kernel_head_dims(gen, pool, dtype, hd):
-    """Decode at hd 32 and 80 over every pool dtype (hd 80 pads a bf16
-    row to 16 lanes, an f32 row to 32, an int8/fp8 row to 8): a 64-page
-    table, so each lane's pages split in two and merge."""
+    """Decode at hd 32 and 80 over every pool dtype (``decode_kernel``
+    pads an hd-80 bf16 row to 16 lanes, an f32 row to 32, an int8/fp8 row
+    to 8; bf16 queries at hd 80 over a bf16/int8/fp8 pool take the
+    cluster face): a 64-page table, so each lane's pages split in two and
+    merge."""
     B, KVH, G, bp = 6, 4, 2, 64
     lens = torch.tensor([0, 1, 15, 16, 333, 1000], dtype=torch.int32,
                         device="cuda")
@@ -962,8 +977,7 @@ def test_decode_kernel_head_dims(gen, pool, dtype, hd):
                                     scales.get("k_scale"),
                                     scales.get("v_scale"))
     torch.cuda.synchronize()
-    face = "decode_quant" if scales else "decode"
-    assert ops.launch_counts()[f"paged_attention_{face}"] == 1
+    assert ops.launch_counts()[_decode_count(q, kp, bool(scales))] == 1
     assert bool((got[0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -1007,6 +1021,123 @@ def test_decode_kernel_dense_arch_groups(gen, pool, dtype, H, KVH):
     torch.cuda.synchronize()
     assert bool((got[0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+SERVE_LENS = [0] + [15 + (128 * i) // 14 for i in range(15)]
+# every served decode shape: (B, H, KVH, hd, page, bp, lens)
+SERVED_DECODE = {
+    "serve": (16, 32, 8, 128, 16, 32, SERVE_LENS),
+    "mesh_rank": (16, 16, 4, 128, 16, 32, SERVE_LENS),
+    "zamba2": (16, 32, 32, 80, 16, 32, SERVE_LENS),
+    "granite": (8, 48, 1, 128, 16, 32, [0] + [15 + (32 * i) // 6
+                                              for i in range(7)]),
+    "qwen3_1_7b": (8, 16, 8, 128, 16, 32, [0, 1, 15, 16, 17, 47, 48, 512]),
+    "phi4_mini": (8, 24, 8, 128, 16, 32, [0, 1, 15, 16, 17, 47, 48, 512]),
+    "starcoder2": (8, 24, 2, 128, 16, 32, [0, 1, 15, 16, 17, 47, 48, 512]),
+    "mixtral": (4, 32, 8, 128, 16, 288, [0, 4206, 4211, 4216]),
+    "long_rows": (16, 32, 8, 128, 16, 256, [0] + [1024 + (3072 * i) // 14
+                                                  for i in range(15)]),
+    "seamless": (8, 16, 16, 64, 16, 8, [0, 65, 76, 86, 97, 107, 118, 128]),
+    "launcher": (16, 4, 2, 64, 16, 16, [0, 1] + [20 + (236 * i) // 13
+                                                 for i in range(14)]),
+    "page8": (8, 32, 8, 128, 8, 64, [0, 1, 7, 8, 9, 16, 17, 512]),
+    "page32": (8, 32, 8, 128, 32, 16, [0, 1, 31, 32, 33, 16, 17, 512]),
+}
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(SERVED_DECODE))
+def test_cluster_face_at_served_shapes(gen, shape, pool):
+    """bf16 queries at every served decode shape (and pages of 8 and 32)
+    take the cluster face, one launch that moves only its counter, and
+    agree with the plain version at 1e-2; a lane of length 0 emits
+    zeros."""
+    B, H, KVH, hd, page, bp, lens = SERVED_DECODE[shape]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
+    if pool in QUANT:
+        kp, vp, bt, ks, vs = _quant_pools(gen, B, bp, KVH, hd, pool, page)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, bt = _pools(gen, B, bp, KVH, hd, torch.bfloat16, page)
+        scales = {}
+    ops.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, bt, lens_t, scale=hd ** -0.5,
+                             **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens_t, hd ** -0.5,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = ("paged_attention_decode_quant_cluster" if scales
+            else "paged_attention_decode_cluster")
+    assert {k: n for k, n in ops.launch_counts().items() if n} == {face: 1}
+    assert bool((got[lens.index(0)] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "fp8"])
+def test_cluster_face_graph_replays_new_lengths(gen, pool):
+    """The cluster face captured in a CUDA graph, as the engine's decode
+    horizon captures it: replayed after the lengths, the block tables and
+    the queries change on the device (the pools stay where they are), it
+    computes the new inputs' attention; every lane emptied, zeros."""
+    B, H, KVH, hd, page, bp, lens = SERVED_DECODE["serve"]
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
+    if pool in QUANT:
+        kp, vp, bt, ks, vs = _quant_pools(gen, B, bp, KVH, hd, pool, page)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, bt = _pools(gen, B, bp, KVH, hd, torch.bfloat16, page)
+        scales = {}
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def call():
+        return pa.paged_attention(q, kp, vp, bt, cl, scale=hd ** -0.5,
+                                  **scales)
+
+    def plain():
+        return pa.paged_attention_plain(q, kp, vp, bt, cl, hd ** -0.5,
+                                        scales.get("k_scale"),
+                                        scales.get("v_scale"))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for new_lens in ([512 - 31 * i for i in range(B)], [0] * B):
+        cl.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        bt.copy_(bt.flip(0))
+        q.copy_(torch.randn(q.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), plain().float(),
+                                   **TOL[torch.bfloat16])
+    assert bool((out == 0).all())
+
+
+def test_split_face_called_directly_runs_decode_kernel(gen):
+    """``paged_attention_split`` launches ``decode_kernel`` on the inputs
+    the route gives the cluster face (the times phase holds the two faces
+    side by side): its counter moves, and the two agree within bf16
+    rounding."""
+    B, H, KVH, hd, page, bp, lens = SERVED_DECODE["serve"]
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
+    kp, vp, bt = _pools(gen, B, bp, KVH, hd, torch.bfloat16, page)
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    cluster = pa.paged_attention(q, kp, vp, bt, cl, scale=0.1)
+    split = pa.paged_attention_split(q, kp, vp, bt, cl, scale=0.1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["paged_attention_decode_cluster"] == 1
+    assert counts["paged_attention_decode"] == 1
+    torch.testing.assert_close(cluster.float(), split.float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("pool", list(POOLS))

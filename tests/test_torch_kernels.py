@@ -187,6 +187,8 @@ def test_cpu_wrappers_count_no_launch():
                                    "paged_attention_prefill_quant": 0,
                                    "paged_attention_prefill_wgmma": 0,
                                    "paged_attention_prefill_quant_wgmma": 0,
+                                   "paged_attention_decode_cluster": 0,
+                                   "paged_attention_decode_quant_cluster": 0,
                                    "step_score": 0, "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_tile": 0,
