@@ -37,9 +37,11 @@ Phases, each printing one JSON line:
                 hd 128), the scorer (K2), flash attention (K3 at hd 128,
                 80, 64 and 32, each in bf16 and f32: its ``kernels`` line's
                 ``flash_launches`` shows that the wgmma, mma.sync tile and
-                3xTF32 faces each ran), the SSD scan (K4 at mamba2's state 128 and zamba2's
-                64: y and the final state, also over a padded sequence and
-                with the init's steep decays), and Mamba2's decode state
+                3xTF32 faces each ran), the SSD scan (K4's wgmma face at
+                mamba2's state 128 and zamba2's 64: y and the final state,
+                also over a padded sequence and with the init's steep
+                decays; its tile face called directly at both), and
+                Mamba2's decode state
                 update (``ssm_decode`` at both states: 128 chained steps,
                 every lane's state moving);
   4. serve    — STEP serving of qwen3-4b-thinking at full width (random
@@ -83,8 +85,9 @@ Phases, each printing one JSON line:
                 over long rows (``paged_attention_decode_long``, 16 lanes
                 of 1024-4096 slots), K2 at the kernels phase's 64 lanes
                 (``step_score_b64``) and K3 at hd 80 in f32, on this line
-                only, and the device time of each launch inside K2, K4 and
-                ``ssm_decode`` (torch.profiler);
+                only, K4's tile face on the same inputs as its wgmma face
+                (``tile_ms``), and the device time of each launch inside
+                K2, K4 (both faces) and ``ssm_decode`` (torch.profiler);
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay, and its kernels
                 by device time (torch.profiler);
@@ -122,7 +125,8 @@ Phases, each printing one JSON line:
                 the kernel engine against the dense engine at the mamba2
                 smoke config;
  12. forward_ssd — ``forward_full(use_kernel=True)`` of mamba2 at full
-                width against the dense forward: one K4 launch per layer;
+                width against the dense forward: one K4 launch per layer,
+                each on its wgmma face (the tile face never);
  13. step_mamba2 — phase 10 for mamba2's decode iteration.
  14. serve_zamba2, reference_zamba2, forward_zamba2, step_zamba2 —
                 phases 11-13 for zamba2-2.7b at full width (54 Mamba2
@@ -469,9 +473,11 @@ def phase_build(ops):
               "K1b's wgmma prefill kernel has no HGMMA")
         check(tc["paged_decode"]["HMMA"] > 0,
               "K1a's cluster face has no HMMA")
+        check(tc["ssd_wgmma"]["HGMMA"] > 0, "K4's wgmma face has no HGMMA")
     for src, kernel in (("paged_attention", "prefill_wgmma_kernel"),
                         ("paged_decode", "decode_cluster_kernel"),
-                        ("flash_attention", "flash_wgmma_kernel")):
+                        ("flash_attention", "flash_wgmma_kernel"),
+                        ("ssd_wgmma", "")):
         for name, row in table[src].items():
             if kernel in name:
                 check(row["spill_bytes"] == 0,
@@ -735,14 +741,22 @@ def check_ssd(sd, g, errs, N, shapes, key):
     """K4 at full width (B = 1, H = 80, P = 64, state ``N``, chunk 256)
     against its sequential plain version: y and the final state over each
     (S, stress) of ``shapes``; an S short of a chunk multiple is padded
-    with dt = 0, as the mixer pads."""
-    for S, stress in shapes:
+    with dt = 0, as the mixer pads. The route sends these shapes to the
+    wgmma face: each call launches it once and the tile face never; the
+    tile face, called directly on the first shape, is held to the plain
+    version too (the times phase's yardstick)."""
+    for k, (S, stress) in enumerate(shapes):
         x, dt, A, Bm, Cm = ssd_inputs(g, S, stress, N=N)
         pad = (-S) % 256
         padded = [torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2)
                                           + [0, pad]) for t in (x, dt, Bm, Cm)]
+        before = dict(sd.LAUNCHES)
         y, h = sd.ssd_scan(padded[0], padded[1], A, padded[2], padded[3],
                            chunk=256)
+        moved = {f: sd.LAUNCHES[f] - before[f] for f in before}
+        check(moved == {"ssd_scan": 1, "ssd_scan_wgmma": 1,
+                        "ssd_scan_tile": 0},
+              f"K4 N={N} S={S}: launches {moved}, not one of the wgmma face")
         yp, hp = sd.ssd_scan_plain(x, dt, A, Bm, Cm)
         torch.cuda.synchronize()
         errs[key] = max(
@@ -750,6 +764,14 @@ def check_ssd(sd, g, errs, N, shapes, key):
             compare(f"K4 N={N} S={S} stress={stress} y", y[:, :S], yp,
                     SSD_TOL),
             compare(f"K4 N={N} S={S} stress={stress} state", h, hp, SSD_TOL))
+        if k == 0:
+            yt, ht = sd.ssd_scan_tile(padded[0], padded[1], A, padded[2],
+                                      padded[3], chunk=256)
+            torch.cuda.synchronize()
+            errs[key + "_tile"] = max(
+                compare(f"K4 tile N={N} S={S} y", yt[:, :S], yp, SSD_TOL),
+                compare(f"K4 tile N={N} S={S} state", ht, hp, SSD_TOL))
+            del yt, ht
         del x, dt, Bm, Cm, padded, y, yp
 
 
@@ -836,10 +858,10 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
                 f"K2 B={B} D={D} {dtype}", got, want, SCORE_TOL)
     # K4: mamba2's full-width scan (N = 128), the same with the init's
     # decay rates and large steps, and S = 1000 padded to 1024; zamba2's
-    # (N = 64) plain and with the init's decays
+    # (N = 64) the same three
     check_ssd(sd, g, errs, 128, ((2048, False), (2048, True), (1000, True)),
               "ssd_scan")
-    check_ssd(sd, g, errs, 64, ((2048, False), (2048, True)),
+    check_ssd(sd, g, errs, 64, ((2048, False), (2048, True), (1000, True)),
               "ssd_scan_zamba2")
     check_ssm_decode(smd, g, errs)
     check_ssm_decode(smd, g, errs, N=64, key="ssm_decode_zamba2")
@@ -1575,6 +1597,10 @@ def phase_forward_recurrent(rt, ops, cfg, params, name):
               f"K4 forward: non-finite {dt} logits")
     check(launches["ssd_scan"] == cfg.num_layers,
           f"K4 launched {launches['ssd_scan']} times, not once per layer")
+    check(launches["ssd_scan_wgmma"] == cfg.num_layers
+          and launches["ssd_scan_tile"] == 0,
+          f"K4 faces: wgmma {launches['ssd_scan_wgmma']}, tile "
+          f"{launches['ssd_scan_tile']}, not one wgmma launch per layer")
     check(launches["flash_attention"] == len(cfg.attention_layer_ids()),
           f"K3 launched {launches['flash_attention']} times, not once per "
           f"attention layer")
@@ -2286,7 +2312,7 @@ def time_decode(pa, kvq, g, B, H, KVH, hd, bp, lens, kv_dtype="bf16"):
             q4, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)),
         library="SDPA over K/V gathered"
                 + (" and dequantized" if quant else "") + " beforehand",
-        face=pa.decode_face(q.dtype, kp.dtype, hd),
+        face=pa.decode_face(q.dtype, kp.dtype, hd, page),
         plan=pa.decode_plan(bp, B * KVH * -(-G // pa.CLUSTER_ROWS), page),
         splits=pa.split_count(bp, B * KVH),
         shape=f"B={B} H={H} KVH={KVH} hd={hd} bp={bp} lens={lens[0]}.."
@@ -2383,10 +2409,13 @@ def time_flash(fa, g, H, hd, dtype, S=2048, window=None):
 
 
 def time_ssd(sd, g, N):
-    """K4 at B = 1, S = 2048, H = 80, P = 64, state N, chunk 256, f32.
-    Operations: C.B^T once per chunk (lower triangle), the intra product
-    over the causal half, the carry-in on every chunk but the first (its
-    state is zero), the state update everywhere."""
+    """K4 at B = 1, S = 2048, H = 80, P = 64, state N, chunk 256, f32:
+    the routed face (``ms``, the wgmma face at this shape, with its plan)
+    and the tile face called directly on the same inputs (``tile_ms``),
+    each launch's device ms of both. Operations: C.B^T once per chunk
+    (lower triangle), the intra product over the causal half, the
+    carry-in on every chunk but the first (its state is zero), the state
+    update everywhere."""
     x, dt, A, Bm, Cm = ssd_inputs(g, 2048, False, N=N)
     Bs, Ss, Hs, Ps = x.shape
     ls = 256
@@ -2395,11 +2424,19 @@ def time_ssd(sd, g, N):
              + 2 * Ps * N * (Ss - ls) * Bs * Hs + 2 * Ps * N * Ss * Bs * Hs)
     return dict(
         ms=time_cuda(lambda: sd.ssd_scan(x, dt, A, Bm, Cm, chunk=ls)),
+        face=sd.ssd_face(Ps, N, ls),
+        plan=sd.ssd_plan(Bs, Ss, Hs, N, ls,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count),
+        tile_ms=time_cuda(lambda: sd.ssd_scan_tile(x, dt, A, Bm, Cm,
+                                                   chunk=ls)),
         plain_ms=time_cuda(lambda: sd.ssd_scan_plain(x, dt, A, Bm, Cm),
                            reps=5, warmup=1),
         library_ms=None, library="none (no single call)",
         launches_ms=device_split(lambda: sd.ssd_scan(x, dt, A, Bm, Cm,
                                                      chunk=ls)),
+        tile_launches_ms=device_split(lambda: sd.ssd_scan_tile(
+            x, dt, A, Bm, Cm, chunk=ls)),
         shape=f"B={Bs} S={Ss} H={Hs} P={Ps} N={N} chunk={ls} f32",
         bytes=4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * Bm.numel()
                    + Bs * Hs * Ps * N),
@@ -3827,9 +3864,9 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:38",
                             "flash_bfloat16",
                             forward["launches"]["flash_attention"]),
-        "ssd_scan": (src + "ssd_scan.cu",
+        "ssd_scan": (src + "ssd_wgmma.cu",
                      "src/repro/kernels/ssd_scan.py:40", "ssd_scan",
-                     forward_ssd["launches"]["ssd_scan"]),
+                     forward_ssd["launches"]["ssd_scan_wgmma"]),
         # no Pallas counterpart: the reference leaves this step to XLA's
         # fusion inside its jitted decode horizon
         "ssm_decode": (src + "ssm_decode.cu",
@@ -3856,10 +3893,10 @@ def main() -> int:
                                  "src/repro/kernels/flash_attention.py:38",
                                  "flash_hd80_bfloat16",
                                  forward_hyb["launches"]["flash_attention"]),
-        "ssd_scan_zamba2": (src + "ssd_scan.cu",
+        "ssd_scan_zamba2": (src + "ssd_wgmma.cu",
                             "src/repro/kernels/ssd_scan.py:40",
                             "ssd_scan_zamba2",
-                            forward_hyb["launches"]["ssd_scan"]),
+                            forward_hyb["launches"]["ssd_scan_wgmma"]),
         "ssm_decode_zamba2": (
             src + "ssm_decode.cu",
             "none (XLA fusion of src/repro/models/layers.py:1120)",

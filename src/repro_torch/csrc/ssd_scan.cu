@@ -36,10 +36,11 @@
 //   3. state_kernel: the chunk state s [P, N] per (b, chunk, head), a
 //      [P, l] x [l, N] product, into a [B, nc, H, P, N] scratch (21 MB at
 //      full width): 640 CTAs where one CTA per head walked the chunks.
-//   4. pass_kernel: h_in per chunk, elementwise over B*H*P*N and in chunk
-//      order, written over the chunk states in place; the state after
-//      the last chunk is the returned final state. Four elements a
-//      thread, chunk c + 1 read while chunk c is updated.
+//   4. pass_kernel (ssd_pass.cuh, shared with ssd_wgmma.cu): h_in per
+//      chunk, elementwise over B*H*P*N and in chunk order, written over
+//      the chunk states in place; the state after the last chunk is the
+//      returned final state. Four elements a thread, chunk c + 1 read
+//      while chunk c is updated.
 //   5. out_kernel: y per (b, chunk, head, 64-row tile): the carry-in, a
 //      [64, N] x [N, P] product, then the intra product over the key
 //      tiles up to the diagonal. 2560 CTAs at full width, the tiles with
@@ -63,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ssd_pass.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -70,7 +72,7 @@ namespace {
 using tf32::mma_tf32;
 using tf32::split_tf32;
 
-constexpr int NT = 256;          // threads per CTA of passes 1 and 4
+constexpr int NT = 256;          // threads per CTA of pass 1
 constexpr int TI = 64;           // output rows (and keys) per tile
 constexpr int KT = 64;           // depth of a staged operand tile
 constexpr int LDK = KT + 4;      // padded row of a staged tile (17 x 16 B)
@@ -94,10 +96,6 @@ constexpr int NTS = 128;         // threads per CTA of pass 3
 constexpr int CB_SMEM = 4 * TILE * sizeof(float);
 constexpr int STATE_SMEM = (2 * KS * (LDX + LDB) + MAXL) * sizeof(float);
 constexpr int OUT_SMEM = (2 * TILE + 2 * TILEB + 2 * MAXL) * sizeof(float);
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -336,52 +334,6 @@ __global__ void __launch_bounds__(NTS)
       }
 }
 
-// 4. in chunk order: st[b, c, h] <- h_in[c]; h_out <- the state after the
-// last chunk. Each thread owns V consecutive elements of [B, H, P, N] and
-// reads chunk c + 1 while it updates chunk c.
-template <int V>
-__global__ void __launch_bounds__(NT)
-    pass_kernel(const float* __restrict__ cs, float* __restrict__ st,
-                float* __restrict__ h_out, int B, int S, int H, int P, int N,
-                int l) {
-  const size_t PN = (size_t)P * N;
-  const size_t idx = ((size_t)blockIdx.x * NT + threadIdx.x) * V;
-  if (idx >= (size_t)B * H * PN) return;
-  const int nc = S / l;
-  const size_t bh = idx / PN, e = idx % PN;
-  const size_t b = bh / H, h = bh % H;
-  auto load = [&](int c, float (&v)[V]) {
-    const float* p = st + ((b * nc + c) * H + h) * PN + e;
-    if constexpr (V == 4) {
-      const float4 t = ld4(p);
-      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-    } else {
-      v[0] = *p;
-    }
-  };
-  float run[V] = {}, cur[V], nxt[V];
-  load(0, cur);
-  for (int c = 0; c < nc; ++c) {
-    const size_t bch = (b * nc + c) * H + h;
-    if (c + 1 < nc) load(c + 1, nxt);
-    const float decay = expf(cs[bch * l + l - 1]);  // exp(cs_last) <= 1
-    float* p = st + bch * PN + e;
-    if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(p) =
-          make_float4(run[0], run[1], run[2], run[3]);
-    } else {
-      *p = run[0];
-    }
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      run[k] = decay * run[k] + cur[k];
-      cur[k] = nxt[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < V; ++k) h_out[idx + k] = run[k];
-}
-
 // 5. y of one 64-row tile of one (b, chunk, head): the carry-in's depth
 // tiles over N, then the intra key tiles up to the diagonal, the next
 // tile copied while this one is used
@@ -533,15 +485,9 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   state_kernel<<<dim3(H, B * nc), NTS, STATE_SMEM, s>>>(
       xf, dtf, (const float*)Bm, csf, stf, S, H, P, N, l);
   if (const cudaError_t e = cudaGetLastError()) return (int)e;
-  const size_t elems = (size_t)B * H * P * N;
-  if ((size_t)P * N % 4 == 0) {
-    pass_kernel<4><<<(unsigned)((elems / 4 + NT - 1) / NT), NT, 0, s>>>(
-        csf, stf, (float*)h, B, S, H, P, N, l);
-  } else {
-    pass_kernel<1><<<(unsigned)((elems + NT - 1) / NT), NT, 0, s>>>(
-        csf, stf, (float*)h, B, S, H, P, N, l);
-  }
-  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  if (const cudaError_t e =
+          launch_pass(csf, stf, (float*)h, B, S, H, P, N, l, s))
+    return (int)e;
   cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        OUT_SMEM);
   out_kernel<<<dim3(H, B * nc, nt), NTO, OUT_SMEM, s>>>(

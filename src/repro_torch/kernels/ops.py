@@ -29,7 +29,7 @@ from repro_torch.kernels.step_score import step_score  # noqa: F401
 
 # CUDA sources under csrc/, one shared library each
 SOURCES = ("paged_attention", "paged_decode", "step_score",
-           "flash_attention", "ssd_scan", "ssm_decode")
+           "flash_attention", "ssd_scan", "ssd_wgmma", "ssm_decode")
 
 # public name -> (the wrapper module's LAUNCHES dict, its key)
 _KERNELS = {
@@ -49,6 +49,8 @@ _KERNELS = {
     "flash_attention_tile": (_flash.LAUNCHES, "flash_tile"),
     "flash_attention_f32_tc": (_flash.LAUNCHES, "flash_f32_tc"),
     "ssd_scan": (_ssd.LAUNCHES, "ssd_scan"),
+    "ssd_scan_wgmma": (_ssd.LAUNCHES, "ssd_scan_wgmma"),
+    "ssd_scan_tile": (_ssd.LAUNCHES, "ssd_scan_tile"),
     "ssm_decode": (_ssm.LAUNCHES, "ssm_decode"),
 }
 # decode-horizon graphs (serving/cuda_graph.py): captures, and replays,

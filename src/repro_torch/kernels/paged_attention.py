@@ -22,8 +22,9 @@ dequantizes the gathered pages; the two agree up to f32 rounding order.
 The chunk's own K/V is exact and never scaled.
 
 The decode face has two kernels, chosen by :func:`decode_face` from the
-dtypes and the head dim alone. bf16 queries over a bf16, int8 or fp8 pool
-at hd 64, 80 or 128 take the cluster face (``csrc/paged_decode.cu``): a
+dtypes, the head dim and the page size alone. bf16 queries over a bf16,
+int8 or fp8 pool at hd 64, 80 or 128, with pages of 8 slots or a multiple
+of 16, take the cluster face (``csrc/paged_decode.cu``): a
 thread-block cluster per (lane, kv head) shares the lane's 16-slot chunks
 (:func:`decode_plan`, from shapes alone), folds them on the tensor cores
 with P rounded to bf16, and merges its CTAs' partial softmax states
@@ -422,15 +423,18 @@ def tiled_softmax_pv(scores: torch.Tensor, mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def decode_face(q_dtype: torch.dtype, pool_dtype: torch.dtype,
-                hd: int) -> str:
+                hd: int, page: int) -> str:
     """The decode kernel for queries of ``q_dtype`` over a pool of
-    ``pool_dtype`` at head dim ``hd``, from dtypes and head dim alone:
-    "cluster" (``csrc/paged_decode.cu``) for bf16 queries over a bf16,
-    int8 or fp8 pool at hd 64, 80 or 128; "split" (``decode_kernel`` of
-    ``csrc/paged_attention.cu``, split-K and a merge launch) for f32
-    queries or an f32 pool, and hd 32."""
+    ``pool_dtype`` at head dim ``hd`` with pages of ``page`` slots, from
+    dtypes and shapes alone: "cluster" (``csrc/paged_decode.cu``) for
+    bf16 queries over a bf16, int8 or fp8 pool at hd 64, 80 or 128 with
+    pages of 8 slots or a multiple of 16 (its TMA boxes and 16-slot
+    chunks); "split" (``decode_kernel`` of ``csrc/paged_attention.cu``,
+    split-K and a merge launch, any page) for f32 queries or an f32 pool,
+    hd 32, and every other page size."""
     if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
-            and hd in CLUSTER_HEAD_DIMS):
+            and hd in CLUSTER_HEAD_DIMS
+            and (page == 8 or page % DECODE_CHUNK == 0)):
         return "cluster"
     return "split"
 
@@ -713,7 +717,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
                                      cache_lens, scale, k_scale, v_scale)
-    if decode_face(q.dtype, k_pool.dtype, q.shape[-1]) == "split":
+    if decode_face(q.dtype, k_pool.dtype, q.shape[-1],
+                   k_pool.shape[1]) == "split":
         return paged_attention_split(q, k_pool, v_pool, block_tables,
                                      cache_lens, scale=scale,
                                      k_scale=k_scale, v_scale=v_scale)

@@ -61,9 +61,11 @@ def gen():
 def _decode_count(q, pool, quant):
     """The launch counter of the decode kernel that ``decode_face`` picks:
     the cluster face for bf16 queries over a bf16/int8/fp8 pool at hd
-    64/80/128, else ``decode_kernel``."""
+    64/80/128 with pages of 8 or a multiple of 16, else
+    ``decode_kernel``."""
     face = "decode_quant" if quant else "decode"
-    if pa.decode_face(q.dtype, pool.dtype, q.shape[-1]) == "cluster":
+    if pa.decode_face(q.dtype, pool.dtype, q.shape[-1],
+                      pool.shape[1]) == "cluster":
         face += "_cluster"
     return f"paged_attention_{face}"
 
@@ -201,7 +203,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_tile": 0,
                                    "flash_attention_f32_tc": 0,
-                                   "ssd_scan": 0, "ssm_decode": 0,
+                                   "ssd_scan": 0, "ssd_scan_wgmma": 0,
+                                   "ssd_scan_tile": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}
 
@@ -650,17 +653,29 @@ SSD_TOL = dict(rtol=2e-3, atol=2e-3)
     (2, 33, 8, 32, 16, 64, False), (1, 512, 80, 64, 128, 256, True),
     (2, 64, 8, 32, 16, 32, True), (1, 4096, 80, 64, 128, 256, True),
     (2, 512, 80, 64, 128, 256, False), (1, 2048, 80, 64, 64, 256, True),
-    (2, 96, 8, 32, 16, 32, True)])
+    (2, 96, 8, 32, 16, 32, True), (1, 2048, 80, 64, 128, 256, False),
+    (1, 2048, 80, 64, 128, 128, True), (1, 1024, 80, 64, 64, 128, False),
+    (2, 384, 8, 64, 128, 192, True), (1, 256, 3, 64, 64, 64, True),
+    (1, 96, 4, 64, 128, 32, False)])
 def test_ssd_kernel_matches_plain(gen, B, S, H, P, N, chunk, stress):
     """The JAX test shapes (one with a head group that does not divide
     H), a chunk of 33 (S under the chunk), the full-width heads with the
-    init's steep decays, 16 chunks of state passing, and two batch rows
-    at full heads."""
+    init's steep decays, 16 chunks of state passing, two batch rows at
+    full heads, the wrapper's chunk of 128 and chunks of 192 and 64 at
+    full width, an odd head count, and a chunk of 32 at full width. The
+    full-width shapes (P 64, N 128 or 64, chunks of 64-256 in steps of
+    64) run the wgmma face, the others the tile face: one launch of the
+    face ``ssd_face`` picks, none of the other."""
     args = _ssd_inputs(gen, B, S, H, P, N, stress)
+    face = sd.ssd_face(P, N, min(chunk, S))
+    assert face == ("wgmma" if P == 64 and chunk >= 64 else "tile")
     ops.reset_launch_counts()
     y, h = sd.ssd_scan(*args, chunk=chunk, head_group=4)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["ssd_scan"] == 1
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1
+    assert counts["ssd_scan_" + face] == 1
+    assert counts["ssd_scan_wgmma"] + counts["ssd_scan_tile"] == 1
     yp, hp = sd.ssd_scan_plain(*args)
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
     torch.testing.assert_close(y, yp, **SSD_TOL)
@@ -688,6 +703,44 @@ def test_ssd_kernel_deterministic(gen):
     y, h = sd.ssd_scan(*args, chunk=256)
     y2, h2 = sd.ssd_scan(*args, chunk=256)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_ssd_wgmma_face_padded_and_deterministic_at_n64(gen):
+    """zamba2's state (N 64) on the wgmma face, as the two tests above
+    hold N 128: S = 1000 padded to 1024 with dt = 0 under the init's
+    decays gives the plain recurrence's y on the real positions and its
+    final state, zero padded rows, and a second call agrees bit for
+    bit."""
+    N = 64
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 1000, 80, 64, N, stress=True)
+    pad = [torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2) + [0, 24])
+           for t in (x, dt, Bm, Cm)]
+    ops.reset_launch_counts()
+    y, h = sd.ssd_scan(pad[0], pad[1], A, pad[2], pad[3], chunk=256)
+    y2, h2 = sd.ssd_scan(pad[0], pad[1], A, pad[2], pad[3], chunk=256)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan_wgmma"] == 2
+    yp, hp = sd.ssd_scan_plain(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y[:, :1000], yp, **SSD_TOL)
+    torch.testing.assert_close(h, hp, **SSD_TOL)
+    assert not y[:, 1000:].any()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_ssd_tile_face_called_directly(gen):
+    """``ssd_scan_tile`` runs the tile face at a full-width shape (the
+    times phase holds the two faces side by side): only its counter
+    moves, and it agrees with the wgmma face within the tolerance."""
+    args = _ssd_inputs(gen, 1, 1024, 80, 64, 128, stress=True)
+    ops.reset_launch_counts()
+    yt, ht = sd.ssd_scan_tile(*args, chunk=256)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["ssd_scan"], counts["ssd_scan_wgmma"],
+            counts["ssd_scan_tile"]) == (0, 0, 1)
+    y, h = sd.ssd_scan(*args, chunk=256)
+    torch.testing.assert_close(yt, y, **SSD_TOL)
+    torch.testing.assert_close(ht, h, **SSD_TOL)
 
 
 def test_ssd_kernel_refusals_and_no_backward(gen):
@@ -1137,6 +1190,68 @@ def test_split_face_called_directly_runs_decode_kernel(gen):
     assert counts["paged_attention_decode_cluster"] == 1
     assert counts["paged_attention_decode"] == 1
     torch.testing.assert_close(cluster.float(), split.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("page", [4, 24])
+def test_decode_any_page_size(gen, pool, page):
+    """Pages the cluster face does not take (not 8 and not a multiple of
+    16; the JAX kernel takes any page, and the reference's tests use
+    pages of 4) decode on the split face: bf16 queries at hd 128 over a
+    bf16, int8 or fp8 pool agree with the plain version, one launch of
+    ``decode_kernel`` and nothing else."""
+    B, KVH, G, hd, bp = 6, 8, 4, 128, 32
+    full = page * bp
+    lens = torch.tensor([0, 1, page - 1, page + 1, full // 2, full],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(B, KVH * G, hd, generator=gen,
+                    device="cuda").bfloat16()
+    kp, vp, bt, scales = _any_pools(gen, B, bp, KVH, hd, pool, page)
+    assert pa.decode_face(q.dtype, kp.dtype, hd, page) == "split"
+    ops.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, bt, lens, scale=hd ** -0.5,
+                             **scales)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, hd ** -0.5,
+                                    scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = ("paged_attention_decode_quant" if scales
+            else "paged_attention_decode")
+    assert {k: n for k, n in ops.launch_counts().items() if n} == {face: 1}
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("page", [4, 24])
+def test_prefill_any_page_size(gen, pool, page):
+    """The chunked-prefill face at the same pages (the mma.sync tile:
+    ``prefill_rows`` gives the wgmma kernel none of them) agrees with its
+    plain version."""
+    KVH, G, hd, C, prefix, nvalid = 8, 4, 128, 16, 3 * page + 5, 13
+    bp = -(-prefix // page) + 1
+    q = torch.randn(1, C, KVH * G, hd, generator=gen,
+                    device="cuda").bfloat16()
+    own = [torch.randn(1, C, KVH, hd, generator=gen, device="cuda")
+           .bfloat16() for _ in range(2)]
+    kp, vp, bt, scales = _any_pools(gen, 1, bp, KVH, hd, pool, page)
+    assert pa.prefill_rows(C, G, hd, page, q.dtype, kp.dtype) == 0
+    pl = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    nv = torch.tensor([nvalid], dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, bt, pl, nv, *own)
+    ops.reset_launch_counts()
+    got = pa.paged_attention_prefill(*args, scale=hd ** -0.5, **scales)
+    want = pa.paged_attention_prefill_plain(*args, hd ** -0.5, None,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+    torch.cuda.synchronize()
+    face = ("paged_attention_prefill_quant" if scales
+            else "paged_attention_prefill")
+    assert {k: n for k, n in ops.launch_counts().items() if n} == {face: 1}
+    assert bool((got[0, nvalid:] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
 
 

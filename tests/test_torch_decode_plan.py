@@ -85,13 +85,25 @@ def test_plan_reads_shapes_only():
 
 def test_face_routes_by_dtype_and_head_dim():
     bf, f32 = torch.bfloat16, torch.float32
+    for page in (8, 16, 32, 64):
+        for pool in (bf, torch.int8, torch.float8_e4m3fn):
+            for hd in (64, 80, 128):
+                assert pa.decode_face(bf, pool, hd, page) == "cluster"
+            assert pa.decode_face(bf, pool, 32, page) == "split"
+            assert pa.decode_face(f32, pool, 128, page) == "split"
+        assert pa.decode_face(bf, f32, 128, page) == "split"
+        assert pa.decode_face(f32, f32, 64, page) == "split"
+
+
+@pytest.mark.parametrize("page", [4, 24, 40, 1, 2, 12])
+def test_face_routes_other_pages_to_the_split_face(page):
+    """The cluster face takes pages of 8 slots or a multiple of 16 (one
+    TMA box per page, 16-slot chunks); the JAX kernel and ``decode_kernel``
+    take any page, so every other page goes to the split face."""
+    bf = torch.bfloat16
     for pool in (bf, torch.int8, torch.float8_e4m3fn):
-        for hd in (64, 80, 128):
-            assert pa.decode_face(bf, pool, hd) == "cluster"
-        assert pa.decode_face(bf, pool, 32) == "split"
-        assert pa.decode_face(f32, pool, 128) == "split"
-    assert pa.decode_face(bf, f32, 128) == "split"
-    assert pa.decode_face(f32, f32, 64) == "split"
+        for hd in (32, 64, 80, 128):
+            assert pa.decode_face(bf, pool, hd, page) == "split"
 
 
 def _edges(page, bp):

@@ -193,6 +193,7 @@ def test_cpu_wrappers_count_no_launch():
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_tile": 0,
                                    "flash_attention_f32_tc": 0,
-                                   "ssd_scan": 0, "ssm_decode": 0,
+                                   "ssd_scan": 0, "ssd_scan_wgmma": 0,
+                                   "ssd_scan_tile": 0, "ssm_decode": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}
