@@ -16,8 +16,9 @@ Phases, each printing one JSON line:
                 HMMA, its mma.sync and 3xTF32 faces; the paged kernel's
                 HGMMA: its wgmma prefill kernel; the cluster decode
                 face's HMMA), and fails if a wgmma kernel (K1b's prefill,
-                K3's bf16 face) or an instance of the cluster decode face
-                (``csrc/paged_decode.cu``) spills;
+                K3's bf16 face), an instance of the cluster decode face
+                (``csrc/paged_decode.cu``) or of K2's main kernel
+                (``score_kernel``) spills;
   3. kernels  — each kernel's wrapper against its plain PyTorch version
                 on the card, at the main paths' full-width shapes: the
                 paged kernel over bf16/f32 pools (K1a: bf16 queries over
@@ -86,8 +87,9 @@ Phases, each printing one JSON line:
                 of 1024-4096 slots), K2 at the kernels phase's 64 lanes
                 (``step_score_b64``) and K3 at hd 80 in f32, on this line
                 only, K4's tile face on the same inputs as its wgmma face
-                (``tile_ms``), and the device time of each launch inside
-                K2, K4 (both faces) and ``ssm_decode`` (torch.profiler);
+                (``tile_ms``), K2's plan, and the device time of each
+                launch inside K2, K4 (both faces) and ``ssm_decode``
+                (torch.profiler);
  10. step     — one full-width decode iteration: eager wall time against
                 the device time of its CUDA-graph replay, and its kernels
                 by device time (torch.profiler);
@@ -477,7 +479,7 @@ def phase_build(ops):
     for src, kernel in (("paged_attention", "prefill_wgmma_kernel"),
                         ("paged_decode", "decode_cluster_kernel"),
                         ("flash_attention", "flash_wgmma_kernel"),
-                        ("ssd_wgmma", "")):
+                        ("ssd_wgmma", ""), ("step_score", "score_kernel")):
         for name, row in table[src].items():
             if kernel in name:
                 check(row["spill_bytes"] == 0,
@@ -856,6 +858,8 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
             torch.cuda.synchronize()
             errs[f"score{tag}_{str(dtype)[6:]}"] = compare(
                 f"K2 B={B} D={D} {dtype}", got, want, SCORE_TOL)
+            check(torch.equal(got, ss.step_score(h, w1, b1, w2, b2)),
+                  f"K2 B={B} D={D} {dtype}: two calls differ")
     # K4: mamba2's full-width scan (N = 128), the same with the init's
     # decay rates and large steps, and S = 1000 padded to 1024; zamba2's
     # (N = 64) the same three
@@ -2168,7 +2172,10 @@ def time_cuda(fn, reps=30, warmup=3):
     0.1 ms then keeps the device busy while the host enqueues the start
     event, the replay and the end event, so that the events do not also
     hold the host's submission of the replay (without it, a one-element
-    add measured 0.014-0.016 ms)."""
+    add measured 0.014-0.016 ms). The capture runs with Python's cyclic
+    collector off, as the engine's decode graphs do
+    (``serving/cuda_graph.py``: a collection during a capture can destroy
+    another graph and invalidate the capture)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2176,8 +2183,9 @@ def time_cuda(fn, reps=30, warmup=3):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from repro_torch.serving.cuda_graph import collector_paused
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         fn()
     times = []
     for _ in range(reps):
@@ -2469,27 +2477,25 @@ def time_ssm_decode(smd, g, N):
         flops=5 * ssm.numel() + 2 * Wd * Bd * Cd, dtype=torch.float32)
 
 
-def time_score(ss, g, B, D, split=False):
+def time_score(ss, g, B, D):
     """K2 over B lanes of bf16 hidden states of width D, f32 weights
-    (hidden width 512); ``split`` adds the device time of each of its
-    launches (torch.profiler)."""
+    (hidden width 512): the kernel, the device time of each of its two
+    launches (torch.profiler) and the plan it ran."""
     Hd = 512
     h = torch.randn(B, D, generator=g, device="cuda").to(torch.bfloat16)
     w1 = torch.randn(D, Hd, generator=g, device="cuda") * (2.0 / D) ** 0.5
     b1 = torch.zeros(Hd, device="cuda")
     w2 = torch.randn(Hd, 1, generator=g, device="cuda") * Hd ** -0.5
     b2 = torch.zeros(1, device="cuda")
-    row = dict(
+    return dict(
         ms=time_cuda(lambda: ss.step_score(h, w1, b1, w2, b2)),
         plain_ms=time_cuda(lambda: ss.step_score_plain(h, w1, b1, w2, b2)),
         library_ms=None,
+        launches_ms=device_split(lambda: ss.step_score(h, w1, b1, w2, b2)),
+        plan=ss.score_plan(B, D, Hd, ss.card_fits(h.device)),
         shape=f"B={B} D={D} hidden={Hd} bf16 hidden, f32 weights",
         bytes=h.numel() * 2 + (w1.numel() + 2 * Hd + 1 + B) * 4,
         flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
-    if split:
-        row["launches_ms"] = device_split(
-            lambda: ss.step_score(h, w1, b1, w2, b2))
-    return row
 
 
 def phase_times(pa, ss, fa, sd, kvq, smd):
@@ -2586,7 +2592,7 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     # K2 at the decode batch: 16 lanes, D = 2560 (qwen3, mamba2, zamba2),
     # 4096 (mixtral) and 256 (the serving launcher's model); D = 2560 at
     # the kernels phase's 64 lanes (this line only)
-    rows["step_score"] = time_score(ss, g, B, 2560, split=True)
+    rows["step_score"] = time_score(ss, g, B, 2560)
     rows["step_score_d4096"] = time_score(ss, g, B, 4096)
     rows["step_score_d256"] = time_score(ss, g, B, 256)
     rows["step_score_b64"] = time_score(ss, g, 64, 2560)

@@ -28,7 +28,8 @@ side effects: every lane's limit is 0, so each KV write lands in the
 scratch block, whose contents it puts back afterwards (the hybrid's
 frozen lanes read that block and carry it into their recurrent state);
 the recurrent state is a zeroed stand-in; it draws from a throwaway
-generator; and it counts no kernel launch. The capture then
+generator; and it counts no kernel launch. The capture, with Python's
+cyclic collector paused (:func:`collector_paused`), then
 registers the engine's generator, so that each replay advances its
 Philox offset as the eager calls would. The kernel launches that the
 wrappers count while the capture records them are kept, and each replay
@@ -46,6 +47,8 @@ calls the function itself: the CPU has no graph.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -58,6 +61,22 @@ from repro_torch.kernels import ops as kops
 RECURRENT = ("ssm_state", "conv_state")
 N_OUTPUTS = 7   # tokens, confidences, scores, token_valid, score_valid,
 #                 final_tokens, positions
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Collect garbage now, then keep Python's cyclic collector off for the
+    block: a collection that an allocation triggers during a capture can
+    destroy an unreachable ``CUDAGraph``, whose reset is not permitted
+    while a stream captures and invalidates the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class DecodeGraph:
@@ -137,7 +156,7 @@ class DecodeGraph:
         graph = torch.cuda.CUDAGraph()
         if rng is not None:
             graph.register_generator_state(rng)
-        with kops.launches_withheld() as made, \
+        with collector_paused(), kops.launches_withheld() as made, \
                 torch.cuda.graph(graph, pool=self.pool):
             out = self._call(params, cache, rng, scorer_params)
         self.graph, self.launches = graph, dict(made)

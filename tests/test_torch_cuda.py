@@ -125,12 +125,13 @@ def _scorer_inputs(g, B, D, Hd, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,D", [(1, 256), (13, 256), (64, 2560), (16, 2560),
-                                 (130, 1000), (16, 4096), (4, 4096)])
+                                 (130, 1000), (16, 4096), (4, 4096), (1, 1),
+                                 (8, 6144), (130, 2560), (33, 20000)])
 def test_step_score_kernel_matches_plain(gen, dtype, B, D):
-    """(16, 2560) is the serve batch; (130, 1000) has a D that no slice
-    of 64 rows divides and lanes across a tile edge; D = 4096 is
-    mixtral-8x7b's width at the serve's 16 lanes and the batched
-    phase's 4."""
+    """(16, 2560) is the serve batch; 130 lanes go through three lane
+    tiles of 64, the last ragged; D = 4096 is mixtral-8x7b's width at the
+    serve's 16 lanes and the batched phase's 4; D = 1 one row; D = 6144
+    granite-20b's width; D = 20000 seven passes of each warp's box."""
     args = _scorer_inputs(gen, B, D, 512, dtype)
     got = ss.step_score(*args)
     torch.testing.assert_close(got, ss.step_score_plain(*args),
@@ -141,7 +142,7 @@ def test_step_score_kernel_matches_plain(gen, dtype, B, D):
 @pytest.mark.parametrize("Hd", [32, 1024])
 def test_step_score_kernel_hidden_widths(gen, dtype, Hd):
     """The narrowest and widest hidden layer the kernel takes: one
-    partial hidden tile, and eight."""
+    hidden tile, and 32."""
     args = _scorer_inputs(gen, 13, 1000, Hd, dtype)
     torch.testing.assert_close(ss.step_score(*args),
                                ss.step_score_plain(*args), rtol=1e-5,
@@ -156,8 +157,8 @@ def test_step_score_kernel_deterministic(gen):
 
 
 def test_step_score_kernel_in_cuda_graph(gen):
-    """Both launches capture: a replay matches the eager call bitwise, and
-    a replay after new hiddens are copied in scores the new hiddens."""
+    """Both launches capture: replays match the eager call bitwise, and a
+    replay after new hiddens are copied in scores the new hiddens."""
     h, w1, b1, w2, b2 = _scorer_inputs(gen, 16, 2560, 512, torch.bfloat16)
     eager = ss.step_score(h, w1, b1, w2, b2)
     side = torch.cuda.Stream()
@@ -168,14 +169,129 @@ def test_step_score_kernel_in_cuda_graph(gen):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = ss.step_score(h, w1, b1, w2, b2)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, eager)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
     h.copy_(torch.randn(h.shape, generator=gen, device="cuda"))
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ss.step_score_plain(h, w1, b1, w2, b2),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ss.step_score(h, w1, b1, w2, b2))
+
+
+def test_step_score_kernel_captured_cold(gen):
+    """A first call inside a capture, at a shape not run before and with
+    the card's cluster counts not yet asked, captures and replays to the
+    eager scores."""
+    h, w1, b1, w2, b2 = _scorer_inputs(gen, 5, 777, 96, torch.float32)
+    ss._fits.clear()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.step_score(h, w1, b1, w2, b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ss.step_score(h, w1, b1, w2, b2))
+
+
+def test_step_score_kernel_unaligned_w1(gen):
+    """A W1 that is not 16-byte aligned (TMA needs it): the wrapper clones
+    it, and the scores are those of the aligned copy."""
+    h, w1, b1, w2, b2 = _scorer_inputs(gen, 16, 2560, 512, torch.bfloat16)
+    odd = torch.empty(w1.numel() + 1, device="cuda")[1:].view_as(w1)
+    odd.copy_(w1)
+    assert odd.data_ptr() % 16
+    assert torch.equal(ss.step_score(h, odd, b1, w2, b2),
+                       ss.step_score(h, w1, b1, w2, b2))
+
+
+def test_step_score_kernel_two_streams_in_flight(gen):
+    """Two calls in flight at once on two streams, each with its own
+    logits workspace and finish launch: every pair gives the scores of a
+    call alone."""
+    sets = [_scorer_inputs(gen, 16, 2560, 512, torch.bfloat16)
+            for _ in range(2)]
+    want = [ss.step_score(*s) for s in sets]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        outs = []
+        for st, s in zip(streams, sets):
+            with torch.cuda.stream(st):
+                outs.append(ss.step_score(*s))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("B,D,Hd", [(16, 2560, 512), (16, 4096, 512),
+                                    (16, 256, 512), (64, 2560, 512),
+                                    (8, 6144, 512), (13, 1000, 1024)])
+def test_step_score_plan_on_the_card(gen, B, D, Hd):
+    """score_plan's shared memory is the kernel's, and the card holds all
+    of a call's clusters at once (one wave, one CTA per SM)."""
+    plan = ss.score_plan(B, D, Hd, ss.card_fits(torch.device("cuda")))
+    lib = ss._library()
+    for bf16 in (0, 1):
+        assert lib.repro_step_score_smem(
+            plan["rows"], plan["lane_tile"], plan["cluster"], bf16) == \
+            ss.score_smem(plan["rows"], plan["lane_tile"], plan["cluster"],
+                          2 if bf16 else 4)
+    assert ss.score_smem(plan["rows"], plan["lane_tile"],
+                         plan["cluster"]) == plan["smem"]
+    assert lib.repro_step_score_max_clusters(
+        plan["rows"], plan["lane_tile"], plan["cluster"]) >= plan["tiles"]
+
+
+def test_decode_graph_capture_survives_a_dead_graph(gen):
+    """A reference cycle holding a captured CUDAGraph becomes garbage while
+    a DecodeGraph captures, with the collector's thresholds at their
+    lowest: the capture must not run the collection that would destroy
+    that graph (its reset is not permitted while a stream captures, and
+    invalidates the capture)."""
+    import gc
+
+    from repro_torch.serving.cuda_graph import DecodeGraph
+    x = torch.zeros(1024, device="cuda")
+    torch.cuda.synchronize()
+    old = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(old):
+        y = x * 2
+    box = [(old, y)]
+    del old, y
+
+    def fn(params, cache, tokens, positions, limits, block_tables, rng,
+           scorer_params):
+        if torch.cuda.is_current_stream_capturing():
+            cycle = {"graph": box.pop()}
+            cycle["self"] = cycle    # a cycle: only the collector frees it
+            del cycle                # young garbage from here on
+            for _ in range(100):     # allocations that start collections
+                [[] for _ in range(20)]
+        out = [tokens * 2, tokens.float(), tokens.float() + 1, tokens > 0,
+               tokens > 1, tokens + 1, positions + 1]
+        return (*out, cache, rng)
+
+    dev = torch.device("cuda")
+    tokens = torch.arange(8, device=dev, dtype=torch.int32)
+    args = (tokens, tokens.clone(), torch.full_like(tokens, 4),
+            torch.zeros(8, 2, device=dev, dtype=torch.int32))
+    params, cache = {}, {}
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = DecodeGraph(fn, dev)
+        out = graph.run(params, cache, *args, None, None)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert graph.graph is not None and not box
+    assert torch.equal(out[0], tokens * 2)
+    out = graph.run(params, cache, tokens + 3, *args[1:], None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], (tokens + 3) * 2)
+    gc.collect()
 
 
 def test_wrappers_count_launches_and_reject_bad_operands(gen):
