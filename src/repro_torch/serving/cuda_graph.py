@@ -44,6 +44,11 @@ once, and the inputs are copied in before a replay starts.
 
 On a CPU engine the same class stages inputs and outputs the same way but
 calls the function itself: the CPU has no graph.
+
+With the engine's tracer on (``serving/tracing.py``), a capture is a
+``capture`` span (its seconds are ``capture_s``), and each call a
+``launch`` span around the input copies and the replay, with the device's
+``decode`` span inside it.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.serving.tracing import NULL_TRACER
 
 # cache entries every lane's decode writes (the ssm and hybrid stacks'
 # per-slot state); a stopped lane's KV writes go to the scratch block
@@ -81,11 +87,15 @@ def collector_paused():
 
 class DecodeGraph:
     """One decode-horizon function (the engine's ``batched_decode`` for a
-    key) as one device call; call it as that function."""
+    key) as one device call; call it as that function. ``tracer`` returns
+    the tracer to record into (the engine's, read at each call)."""
 
     def __init__(self, fn: Callable, device: torch.device, pool=None,
-                 scratch_block: int = 0):
+                 scratch_block: int = 0, key: tuple = (),
+                 tracer: Callable = lambda: NULL_TRACER):
         self.fn = fn
+        self.key = key
+        self.tracer = tracer
         self.device = device
         self.pool = pool
         self.scratch_block = scratch_block
@@ -112,21 +122,23 @@ class DecodeGraph:
             raise RuntimeError(
                 "decode graph called with other params, generator or pool "
                 "tensors than the ones it was captured over")
+        tracer = self.tracer()
         if self.device.type == "cuda" and self.graph is None:
-            self._capture(params, cache, rng, scorer_params)
-        for dst, src in zip(self.inputs, args):
-            dst.copy_(src)
-        if self.graph is not None:
-            self.graph.replay()
-            kops.add_launches(self.launches)
-            kops.GRAPHS["decode_graph_replays"] += 1
-        else:
-            out = self._call(params, cache, rng, scorer_params)
-            if self.outputs is None:
-                self.outputs = tuple(torch.empty_like(t)
-                                     for t in out[:N_OUTPUTS])
-            for dst, src in zip(self.outputs, out[:N_OUTPUTS]):
+            self._capture(params, cache, rng, scorer_params, tracer)
+        with tracer.span("launch"), tracer.device("decode"):
+            for dst, src in zip(self.inputs, args):
                 dst.copy_(src)
+            if self.graph is not None:
+                self.graph.replay()
+                kops.add_launches(self.launches)
+                kops.GRAPHS["decode_graph_replays"] += 1
+            else:
+                out = self._call(params, cache, rng, scorer_params)
+                if self.outputs is None:
+                    self.outputs = tuple(torch.empty_like(t)
+                                         for t in out[:N_OUTPUTS])
+                for dst, src in zip(self.outputs, out[:N_OUTPUTS]):
+                    dst.copy_(src)
         return (*self.outputs, cache, rng)
 
     __call__ = run
@@ -136,8 +148,8 @@ class DecodeGraph:
         return self.fn(params, cache, tokens, positions, limits,
                        block_tables, rng, scorer_params, *samp)
 
-    def _capture(self, params, cache, rng, scorer_params) -> None:
-        t0 = time.perf_counter()
+    def _capture(self, params, cache, rng, scorer_params, tracer) -> None:
+        t0 = time.perf_counter_ns()
         stand_in = {k: torch.zeros_like(v) if k in RECURRENT else v
                     for k, v in cache.items()}
         scratch = {k: v[:, self.scratch_block].clone()
@@ -161,5 +173,7 @@ class DecodeGraph:
             out = self._call(params, cache, rng, scorer_params)
         self.graph, self.launches = graph, dict(made)
         self.outputs = tuple(out[:N_OUTPUTS])
-        self.capture_s = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        self.capture_s = (t1 - t0) / 1e9
+        tracer.add("capture", t0, t1, key=list(self.key))
         kops.GRAPHS["decode_graph_captures"] += 1

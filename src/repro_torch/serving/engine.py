@@ -94,6 +94,7 @@ from repro_torch.serving.sampling import (SamplingParams, sample_logits,
 from repro_torch.serving.scheduler import (SLO, ReqState, SchedulerCore,
                                            SchedulingPolicy,
                                            default_scheduler)
+from repro_torch.serving.tracing import NULL_TRACER
 
 
 def _default_use_kernel():
@@ -288,6 +289,10 @@ class Engine:
     "data" axis. Its serves equal the single-device engine's: tokens,
     scores, statuses and prunes.
 
+    ``tracer`` is :data:`serving.tracing.NULL_TRACER`, which records
+    nothing; set a ``serving.tracing.Tracer`` before a serve to record its
+    spans, instants and counters.
+
     ``_eager_decode`` calls the decode horizon directly instead of through
     its :class:`DecodeGraph`: for tests that hold the graphs against the
     eager horizon, not for serving."""
@@ -353,7 +358,7 @@ class Engine:
         self.fault_stats = FaultStats()
         self.force_horizon1 = False
         self._cancel_requests: set = set()
-        self.last_event_log: list = []
+        self.tracer = NULL_TRACER
         self._build_steps()
 
     # ------------------------------------------------------------------
@@ -507,14 +512,16 @@ class Engine:
 
         @torch.no_grad()
         def prefill(params, tokens):
-            out = forward_full(params, cfg, tokens, return_kv=True, tp=tp)
-            return mask_vocab(out["logits"]), out["kvs"]
+            with self.tracer.device("prefill"):
+                out = forward_full(params, cfg, tokens, return_kv=True, tp=tp)
+                return mask_vocab(out["logits"]), out["kvs"]
 
         self._prefill = prefill
 
         @torch.no_grad()
         def write_kv(sub_cache, kvs):
-            return write_pool_kv(cfg, sub_cache, kvs)
+            with self.tracer.device("kv_write"):
+                return write_pool_kv(cfg, sub_cache, kvs)
 
         self._write_kv = write_kv
 
@@ -522,19 +529,22 @@ class Engine:
             @torch.no_grad()
             def chunk_prefill(params, cache, tokens, positions, valid,
                               block_tables):
-                out = prefill_chunk_step(
-                    params, cfg, tokens, positions, valid,
-                    {**cache, "block_tables": block_tables},
-                    window_len=ecfg.capacity, use_kernel=use_kernel, tp=tp)
-                new_cache = out["cache"]
-                new_cache.pop("block_tables", None)
-                return mask_vocab(out["logits"]), new_cache
+                with self.tracer.device("prefill_chunk"):
+                    out = prefill_chunk_step(
+                        params, cfg, tokens, positions, valid,
+                        {**cache, "block_tables": block_tables},
+                        window_len=ecfg.capacity, use_kernel=use_kernel,
+                        tp=tp)
+                    new_cache = out["cache"]
+                    new_cache.pop("block_tables", None)
+                    return mask_vocab(out["logits"]), new_cache
 
             self._chunk_prefill = chunk_prefill
 
         @torch.no_grad()
         def copy_block(cache, src, dst):
-            return copy_kv_block(cfg, cache, src, dst)
+            with self.tracer.device("block_copy"):
+                return copy_kv_block(cfg, cache, src, dst)
 
         self._copy_block = copy_block
 
@@ -549,9 +559,20 @@ class Engine:
             fn = self._make_decode(horizon, lanewise)
             if not self._eager_decode and self.tp is None:
                 fn = DecodeGraph(fn, self.device, self._graph_pool,
-                                 self.block_mgr.scratch_block)
+                                 self.block_mgr.scratch_block, key=key,
+                                 tracer=lambda: self.tracer)
+            else:
+                fn = self._device_traced(fn)
             self._decode_fns[key] = fn
         return fn
+
+    def _device_traced(self, fn: Callable) -> Callable:
+        """An eager decode horizon, traced as one ``decode`` device call
+        (a :class:`DecodeGraph` traces its own)."""
+        def call(*args):
+            with self.tracer.device("decode"):
+                return fn(*args)
+        return call
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Upload a host array (a copy: the scheduler keeps mutating its
@@ -736,6 +757,7 @@ class Engine:
         each result as its last trace finishes). Results come back in
         submission order."""
         t_start = time.perf_counter()
+        serve = self.tracer.begin_serve(self.device, requests=len(requests))
         states: List[ReqState] = []
         for req in requests:
             if req.policy is not None:
@@ -767,9 +789,8 @@ class Engine:
         except BaseException:
             # mid-serve crash: drain what the run still held, then re-raise
             core.emergency_drain()
-            self.last_event_log = list(core.event_log)
+            self.tracer.end(serve)
             raise
-        self.last_event_log = list(core.event_log)
 
         t_end = time.perf_counter()
         results = []
@@ -778,6 +799,7 @@ class Engine:
                 st.result = self._finalize(st, t_start, t_end, peak_blocks)
             results.append(st.result)
         self.check_ranks_agree(results)
+        self.tracer.end(serve)
         return results
 
     def _finalize(self, st: ReqState, t_start: float, t_end: float,

@@ -34,6 +34,12 @@ handler cascade executes the exact operation sequence of the old tick
 loop, so the event core is token/score/prune-identical to it under a
 fixed RNG (pinned in tests/test_scheduler.py).
 
+With the engine's tracer on (``serving/tracing.py``), every event is an
+instant of the trace, each round a ``round`` span from its
+``BudgetReplenish`` to the end of its burst's fold, with a span for each
+of its phases inside, and each round starts with a row of counters (the
+pool's blocks, the lanes and queues, the horizon fallbacks).
+
 Scheduling policies
 -------------------
 
@@ -85,6 +91,7 @@ from repro_torch.core.trace import Trace, TraceStatus
 from repro_torch.data.arithmetic import extract_answer
 from repro_torch.serving.faults import DeviceStepFault, FatalFaultError
 from repro_torch.serving.queue import RequestQueue
+from repro_torch.serving.tracing import NULL_SPAN
 
 if TYPE_CHECKING:  # engine imports scheduler; never the reverse at runtime
     from repro_torch.serving.engine import Engine, Request
@@ -686,7 +693,8 @@ class SchedulerCore:
         self._fanout_shed = False  # persistent-alloc shed rung taken
 
         self.events: deque = deque()
-        self.event_log: deque = deque(maxlen=4096)
+        self.tr = eng.tracer
+        self._round = NULL_SPAN
 
     # -- policy-facing views ------------------------------------------------
     def tenant_of(self, request_id: int) -> str:
@@ -720,7 +728,8 @@ class SchedulerCore:
         self.events.append(event)
 
     def _notify(self, event: Event) -> None:
-        self.event_log.append(event)
+        if self.tr.enabled:
+            self.tr.event(event)
         self.sched.on_event(event)
 
     def _now_rel(self) -> float:
@@ -764,6 +773,7 @@ class SchedulerCore:
                 # remaining requests, drain the pool, keep the engine
                 # usable — the loop then exits with no work left
                 self.abort_serve()
+                self.tr.end(self._round)
 
         for job in list(self.jobs.values()):  # defensive: no job survives
             job.abort()
@@ -794,7 +804,8 @@ class SchedulerCore:
             return
         nxt = self.pending.next_arrival()
         if nxt is not None:
-            time.sleep(min(max(nxt - now_rel, 0.0), 0.02) + 1e-4)
+            with self.tr.span("await_arrival"):
+                time.sleep(min(max(nxt - now_rel, 0.0), 0.02) + 1e-4)
 
     # ------------------------------------------------------------------
     # handlers
@@ -820,8 +831,34 @@ class SchedulerCore:
         self._tokens_done += ev.chunk_tokens
 
     def _on_budget_replenish(self, ev: BudgetReplenish) -> None:
-        """One scheduling round: gates -> pressure -> admission wave ->
-        write-block assurance -> decode dispatch."""
+        """One scheduling round, traced as a ``round`` span that the
+        burst's fold ends (or the round itself, if it dispatched none)."""
+        tr = self.tr
+        self._round = tr.span("round", tick=ev.tick,
+                              running=len(self.running))
+        if tr.enabled:
+            self._trace_counters()
+        if not self._run_round(ev):
+            tr.end(self._round)
+
+    def _trace_counters(self) -> None:
+        """The round's counters: the pool's blocks by holder, the lanes
+        and queues, the horizon fallbacks so far."""
+        mgr, pcache = self.mgr, self.pcache
+        reserved = sum(j.res.num_taken for j in self.jobs.values())
+        cached = pcache.cached_blocks if pcache is not None else 0
+        self.tr.counter("pool", held=mgr.used_blocks - reserved - cached,
+                        reserved=reserved, cached=cached,
+                        free=mgr.free_blocks)
+        self.tr.counter("queue", running=len(self.running),
+                        waiting=len(self.waiting),
+                        queued=len(self.pending))
+        self.tr.counter("horizon_fallbacks",
+                        count=self.eng.horizon_fallbacks)
+
+    def _run_round(self, ev: BudgetReplenish) -> bool:
+        """Gates -> pressure -> admission wave -> write-block assurance
+        -> decode dispatch. Returns True if it dispatched a burst."""
         if self.plan is not None and self.plan.alloc_blocked(ev.tick):
             # injected allocator outage: STALL the whole round (no
             # admission, no decode) instead of reaching the memory-
@@ -838,36 +875,39 @@ class SchedulerCore:
                     f"allocator unavailable for {self._alloc_stalls} "
                     f"consecutive rounds")
             time.sleep(self.recovery.backoff(self._alloc_stalls))
-            return
+            return False
         self._alloc_stalls = 0
-        for st in self.started:
-            st.update_gate()
-        pressure = self.current_pressure()
-        for st in self.started:
-            if not st.done():
-                st.policy.observe_pressure(pressure)
+        with self.tr.span("pressure"):
+            for st in self.started:
+                st.update_gate()
+            pressure = self.current_pressure()
+            for st in self.started:
+                if not st.done():
+                    st.policy.observe_pressure(pressure)
 
         budget = self.sched.tick_budget(self)
-        progressed = self.try_admit(budget)
+        with self.tr.span("admit"):
+            progressed = self.try_admit(budget)
         if not self.running:
             if not (self.waiting or self.jobs or self.pending):
-                return
+                return False
             if progressed:
                 self.idle_ticks = 0
-                return
+                return False
             if self.pending:
                 # arrivals still due: wait for them (not a deadlock)
                 nxt = self.pending.next_arrival()
                 now_rel = self._now_rel()
                 if nxt is not None and nxt > now_rel:
-                    time.sleep(min(nxt - now_rel, 0.02) + 1e-4)
-                return
+                    with self.tr.span("await_arrival"):
+                        time.sleep(min(nxt - now_rel, 0.02) + 1e-4)
+                return False
             self.idle_ticks += 1
             if self.idle_ticks >= 3:
                 raise RuntimeError("no trace schedulable")
-            return
+            return False
         self.idle_ticks = 0
-        self._dispatch_decode(ev)
+        return self._dispatch_decode(ev)
 
     # ------------------------------------------------------------------
     # pool accounting + memory pressure (ported from the tick loop)
@@ -902,7 +942,9 @@ class SchedulerCore:
         if self.mgr.can_allocate(n):
             return True
         if self.pcache is not None:
-            self.pcache.evict(n - self.mgr.free_blocks)
+            freed = self.pcache.evict(n - self.mgr.free_blocks)
+            if freed:
+                self.tr.instant("evict", blocks=freed)
         return self.mgr.can_allocate(n)
 
     def release(self, trace: Trace, status: TraceStatus) -> None:
@@ -996,6 +1038,7 @@ class SchedulerCore:
         # (the cache can only ADD free-able memory, never displace a
         # trace that would have run with the cache off).
         if self.pcache is not None and self.pcache.evict(1):
+            self.tr.instant("evict", rid=rid, blocks=1)
             return True
         st = self.by_req[rid]
         own_running = [t for t in self.running if t.request_id == rid]
@@ -1004,8 +1047,15 @@ class SchedulerCore:
         if victim is not None:  # STEP prune
             if len(own_running) <= 1 and needy is victim:
                 # sole survivor: finish (truncate) instead of self-prune
+                self.tr.instant("truncate", rid=rid)
                 self.finish(victim)
                 return True
+            if self.tr.enabled:
+                scores = [t.score for t in own_running if t.alive]
+                self.tr.instant(
+                    "prune", rid=rid, score=victim.score, least=min(scores),
+                    candidates=len(scores),
+                    at="admission" if at_admission else "decode")
             self.release(victim, TraceStatus.PRUNED)
             return True
         if self.reclaim_idle_prefix(skip_rid=rid):
@@ -1017,8 +1067,10 @@ class SchedulerCore:
         victim = self.sched.preempt_victim(self, needy)
         if victim is None:
             # lone trace cannot be preempted to help itself: truncate
+            self.tr.instant("truncate", rid=rid)
             self.finish(needy)
             return True
+        self.tr.instant("preempt", rid=victim.request_id)
         self.release(victim, TraceStatus.PREEMPTED)
         victim.runnable_since = time.perf_counter()
         self.waiting.append(victim)
@@ -1118,6 +1170,7 @@ class SchedulerCore:
                     break
                 if t.status == TraceStatus.WAITING and t in self.waiting:
                     self.waiting.remove(t)
+                    self.tr.instant("prune", rid=st.request_id, at="shed")
                     self.release(t, TraceStatus.PRUNED)
                     st.degraded_traces += 1
                     self.stats.shed_traces += 1
@@ -1246,7 +1299,9 @@ class SchedulerCore:
         if bidx < len(trace.blocks):
             old = trace.blocks[bidx]
             try:
-                self.cache = self.eng._copy_block(self.cache, old, blk[0])
+                with self.tr.span("block_copy", rid=trace.request_id):
+                    self.cache = self.eng._copy_block(self.cache, old,
+                                                      blk[0])
             except BaseException:
                 self.mgr.free(blk)   # the fresh block must not leak
                 raise
@@ -1337,11 +1392,13 @@ class SchedulerCore:
             toks[0, :c] = job.tokens[job.pos : job.pos + c]
             pos_arr = job.pos + np.arange(C, dtype=np.int32)[None, :]
             valid = (np.arange(C, dtype=np.int32)[None, :] < c)
-            logits, self.cache = self.device_call(
-                lambda: eng._chunk_prefill(
-                    eng.params, self.cache, eng.to_device(toks),
-                    eng.to_device(pos_arr), eng.to_device(valid),
-                    eng.to_device(job.row[None, :])))
+            with self.tr.span("prefill_chunk", rid=st.request_id,
+                              tokens=c, pos=job.pos):
+                logits, self.cache = self.device_call(
+                    lambda: eng._chunk_prefill(
+                        eng.params, self.cache, eng.to_device(toks),
+                        eng.to_device(pos_arr), eng.to_device(valid),
+                        eng.to_device(job.row[None, :])))
             job.last_logits = logits[:, c - 1]
             job.pos += c
             budget.spend(c, tenant=tenant)
@@ -1392,17 +1449,18 @@ class SchedulerCore:
         row = np.zeros((eng.blocks_per_seq,), np.int32)
         row[:len(blocks)] = blocks
         t_pf = time.perf_counter()
-        ids_arr = eng.to_device(
-            np.array(trace.prompt_tokens, np.int32)[None, :])
-        try:
-            logits, kvs = self.device_call(
-                lambda: eng._prefill(eng.params, ids_arr))
-        except BaseException:
-            self.mgr.free(blocks)   # the local holding must not leak
-            raise
-        attn_kvs, slot_state = eng._split_prefill_kvs(kvs)
-        self.cache = eng._write_prefix_kv(self.cache, attn_kvs, row,
-                                          seq_len)
+        with self.tr.span("prefill", rid=st.request_id, tokens=seq_len):
+            ids_arr = eng.to_device(
+                np.array(trace.prompt_tokens, np.int32)[None, :])
+            try:
+                logits, kvs = self.device_call(
+                    lambda: eng._prefill(eng.params, ids_arr))
+            except BaseException:
+                self.mgr.free(blocks)   # the local holding must not leak
+                raise
+            attn_kvs, slot_state = eng._split_prefill_kvs(kvs)
+            self.cache = eng._write_prefix_kv(self.cache, attn_kvs, row,
+                                              seq_len)
         st.prefix = SharedPrefix(blocks=blocks, seq_len=seq_len,
                                  last_logits=logits[:, -1],
                                  slot_state=slot_state)
@@ -1462,21 +1520,25 @@ class SchedulerCore:
         row[:len(blocks)] = blocks
         self.block_tables[slot] = row
         t_pf = time.perf_counter()
-        ids_arr = eng.to_device(np.array(ids, np.int32)[None, :])
-        # trace.blocks/slot are already registered, so a fatal abort
-        # from here releases them through the normal trace path
-        logits, kvs = self.device_call(
-            lambda: eng._prefill(eng.params, ids_arr))
-        cache_new = eng._write_prefill(self.cache, kvs, slot, row, len(ids))
+        with self.tr.span("prefill", rid=st.request_id, tokens=len(ids)):
+            ids_arr = eng.to_device(np.array(ids, np.int32)[None, :])
+            # trace.blocks/slot are already registered, so a fatal abort
+            # from here releases them through the normal trace path
+            logits, kvs = self.device_call(
+                lambda: eng._prefill(eng.params, ids_arr))
+            cache_new = eng._write_prefill(self.cache, kvs, slot, row,
+                                           len(ids))
         # next token continues from the last prefill logit
         self.positions[slot] = len(ids)
         self.dirty["block_tables"] = self.dirty["positions"] = True
         self.dirty["tokens"] = True
         self._set_slot_sampling(slot, st)
-        nt, conf = eng.sample_host(logits[:, -1], st.sampling)
-        self.cur_tokens[slot] = int(nt[0])
-        trace.output_tokens.append(int(nt[0]))
-        trace.token_confidences.append(float(conf[0]))
+        with self.tr.span("first_tokens", rid=st.request_id):
+            with self.tr.device("first_tokens"):
+                nt, conf = eng.sample_host(logits[:, -1], st.sampling)
+            self.cur_tokens[slot] = int(nt[0])
+            trace.output_tokens.append(int(nt[0]))
+            trace.token_confidences.append(float(conf[0]))
         st.note_first_token()
         self.cache = cache_new
         st.prefill_s += time.perf_counter() - t_pf
@@ -1497,16 +1559,19 @@ class SchedulerCore:
         live = [t for t in wave if t.status == TraceStatus.RUNNING]
         if not live:
             return
-        logits = torch.cat(
-            [self.by_req[t.request_id].prefix.last_logits for t in live],
-            dim=0)  # [m, Vp]
-        if self.mixed_sampling:
-            sps = [self.by_req[t.request_id].sampling for t in live]
-            nt, conf = self.eng.sample_host_lanes(logits, sps)
-        else:
-            nt, conf = self.eng.sample_host(logits, self.ecfg.sampling)
-        nt = nt.cpu().tolist()
-        conf = conf.cpu().tolist()
+        with self.tr.span("first_tokens", traces=len(live)):
+            with self.tr.device("first_tokens"):
+                logits = torch.cat(
+                    [self.by_req[t.request_id].prefix.last_logits
+                     for t in live], dim=0)  # [m, Vp]
+                if self.mixed_sampling:
+                    sps = [self.by_req[t.request_id].sampling for t in live]
+                    nt, conf = self.eng.sample_host_lanes(logits, sps)
+                else:
+                    nt, conf = self.eng.sample_host(logits,
+                                                    self.ecfg.sampling)
+            nt = nt.cpu().tolist()
+            conf = conf.cpu().tolist()
         self.dirty["tokens"] = True
         for i, trace in enumerate(live):
             self.cur_tokens[trace.batch_slot] = nt[i]
@@ -1532,6 +1597,7 @@ class SchedulerCore:
         st.degraded_traces = len(excess)
         for t in excess:
             self.waiting.remove(t)
+            self.tr.instant("prune", rid=st.request_id, at="slo")
             self.release(t, TraceStatus.PRUNED)
         return True
 
@@ -1540,6 +1606,7 @@ class SchedulerCore:
         or any prefill chunk advanced."""
         wave: List[Trace] = []
         advanced = False
+        n_private = n_jobs = 0   # admissions by full prefill, jobs advanced
         # in-flight chunked prefills advance first (oldest work)
         for rid in list(self.jobs):
             job = self.jobs.get(rid)
@@ -1549,6 +1616,7 @@ class SchedulerCore:
             status = self.advance_job(job, budget)
             if status == "ready" or job.pos > before:
                 advanced = True
+                n_jobs += 1
         skipped: set = set()
         while self.free_slots:
             trace = self.sched.pick(self, skipped)
@@ -1609,6 +1677,8 @@ class SchedulerCore:
                         self.jobs[st.request_id] = job
                     before = job.pos
                     status = self.advance_job(job, budget)
+                    if status == "ready" or job.pos > before:
+                        n_jobs += 1
                     if status == "ready":
                         advanced = True
                         continue  # re-pick: prefix now exists
@@ -1670,17 +1740,20 @@ class SchedulerCore:
                     continue
                 budget.spend(ids_len + self.K_cfg, tenant=tenant)
                 self.admit_private(trace, st)
+                n_private += 1
         self.flush_first_tokens(wave)
+        self.tr.annotate(traces=len(wave) + n_private, jobs=n_jobs)
         return advanced or bool(wave)
 
     # ------------------------------------------------------------------
     # decode dispatch + burst processing
     # ------------------------------------------------------------------
-    def _dispatch_decode(self, ev: BudgetReplenish) -> None:
+    def _dispatch_decode(self, ev: BudgetReplenish) -> bool:
         """Write-block assurance, horizon selection, ONE fused device
         call, then a ``BurstDone`` event carrying the host-synced
-        results."""
-        eng = self.eng
+        results. Returns False if no trace was left to decode."""
+        eng, tr = self.eng, self.tr
+        write_blocks = tr.span("write_blocks")
         # ensure every running trace exclusively owns the block its
         # next token's KV will be written into: allocate fresh blocks
         # at the growth frontier, copy-on-write still-shared (prompt)
@@ -1707,7 +1780,8 @@ class SchedulerCore:
                 continue
             self.claim_write_block(trace, bidx)
         if not self.running:
-            return
+            tr.end(write_blocks)
+            return False
 
         # decode horizon: how many tokens may this round fuse?
         K_cfg = self.K_cfg
@@ -1740,6 +1814,8 @@ class SchedulerCore:
         for trace in self.running:
             limits[trace.batch_slot] = (
                 1 if K_tick == 1 else self.extend_frontier(trace, K_tick))
+        tr.end(write_blocks)
+        self._round.set(horizon=K_tick, fallback=K_tick < K_cfg)
 
         # one fixed-shape fused decode call: K_tick iterations of
         # decode + on-device sampling + step-boundary score capture
@@ -1747,6 +1823,7 @@ class SchedulerCore:
         for t in self.running:
             n_by_req[t.request_id] = n_by_req.get(t.request_id, 0) + 1
         t_dec = time.perf_counter()
+        upload = tr.span("upload")
         for name, arr in (("tokens", self.cur_tokens),
                           ("positions", self.positions),
                           ("block_tables", self.block_tables)):
@@ -1761,6 +1838,7 @@ class SchedulerCore:
                                       ("temperature", "top_k", "top_p"))
                 self.samp_dirty = False
             extra = self.samp_dev
+        tr.end(upload)
 
         def decode_thunk():
             # re-resolve the step each attempt: a mid-retry degrade
@@ -1777,14 +1855,22 @@ class SchedulerCore:
                       self.dev["block_tables"], eng._rng,
                       eng.scorer_params, *extra)
 
+        K_eff = 1 if eng.force_horizon1 else K_tick
+        decode = tr.span("decode", horizon=K_eff if K_eff == K_cfg else 1,
+                         lanewise=self.mixed_sampling)
         (toks_d, confs_d, scores_d, tv_d, sv_d, fin_tok, fin_pos,
          self.cache, eng._rng) = self.device_call(decode_thunk)
+        tr.end(decode)
         # one host-transfer burst per round (the first .cpu() waits for
         # the device, the rest copy); .tolist() batches the per-trace
         # float()/int() conversions of the old per-token loop
-        toks_h, confs_h, scores_h, tv_h, sv_h, ft_h, fp_h = (
-            x.cpu().tolist() for x in
-            (toks_d, confs_d, scores_d, tv_d, sv_d, fin_tok, fin_pos))
+        with tr.span("sync"):
+            toks_h, confs_h, scores_h, tv_h, sv_h, ft_h, fp_h = (
+                x.cpu().tolist() for x in
+                (toks_d, confs_d, scores_d, tv_d, sv_d, fin_tok, fin_pos))
+        tr.anchor()   # the stream is empty: tie the device's clock here
+        if tr.enabled:
+            decode.set(**self._lane_iterations(tv_h))
         if self.plan is not None:
             # NaN injection poisons the victim lane's HOST-synced
             # confidences only — device state is untouched, so the
@@ -1810,8 +1896,28 @@ class SchedulerCore:
         self._burst = (toks_h, confs_h, scores_h, tv_h, sv_h)
         self.emit(BurstDone(t=self._now_rel(), tick=ev.tick,
                             n_lanes=len(self.running), tokens=0))
+        return True
+
+    def _lane_iterations(self, tv_h: list) -> dict:
+        """The burst's live lane-iterations and the summed length they
+        attended over (lane b's iteration k over its position at the
+        burst's start + k + 1 slots, at most the window), from the host's
+        copy of its token-valid rows; the positions are those before the
+        fold moves them."""
+        valid = np.cumprod(np.asarray(tv_h, dtype=bool), axis=1)
+        k = np.arange(valid.shape[1])
+        length = np.minimum(self.positions[:, None] + k + 1, self.cap)
+        return {"live": int(valid.sum()), "ctx": int((length * valid).sum())}
 
     def _on_burst_done(self, ev: BurstDone) -> None:
+        """The burst's ``fold``, which ends the round's span."""
+        with self.tr.span("fold"):
+            self._fold(ev)
+        if self.tr.enabled:
+            self.tr.counter("burst", tokens=ev.tokens)
+        self.tr.end(self._round)
+
+    def _fold(self, ev: BurstDone) -> None:
         """Fold the synced burst into traces: outputs, scores, EOS /
         max-new-token finishes, then the signal-triggered termination
         sweep (DeepConf / Slim-SC / STEP proactive pruning)."""
@@ -1873,4 +1979,5 @@ class SchedulerCore:
                 continue
             for trace in st.policy.traces_to_terminate(own):
                 if trace.status == TraceStatus.RUNNING:
+                    self.tr.instant("prune", rid=st.request_id, at="signal")
                     self.release(trace, TraceStatus.PRUNED)
