@@ -279,14 +279,27 @@ def k1a_launches(launches: dict) -> int:
 
 
 def check_decode_launches(name, cfg, launches, iters, quant=False):
-    """A bf16, int8 or fp8 serve: the cluster decode face once per
-    attention layer and decode iteration, ``decode_kernel`` never."""
+    """A bf16, int8 or fp8 serve of the dense or MoE stack: the cluster
+    decode face once per attention layer and decode iteration,
+    ``decode_kernel`` never. The decode glue (``layers.glue_route``): over
+    a bf16 pool two ``add_rms_norm`` per layer and iteration plus the
+    final norm's and one ``attn_prologue`` per layer and iteration, over
+    an int8/fp8 pool neither; ``silu_mul`` at least once per layer and
+    iteration on both (the prefills add theirs)."""
     face = K1C_DECODE[0] if quant else K1A[0]
-    check(launches[face] == iters * len(cfg.attention_layer_ids()) > 0,
+    layers = len(cfg.attention_layer_ids())
+    check(launches[face] == iters * layers > 0,
           f"{name}: {face} launched {launches[face]} times over {iters} "
           f"decode iterations")
     check(all(launches[k] == 0 for k in SPLIT_DECODE),
           f"{name}: decode_kernel ran")
+    want = {"add_rms_norm": 0 if quant else iters * (2 * layers + 1),
+            "attn_prologue": 0 if quant else iters * layers}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{name}: decode glue launches {got}, not {want}")
+    check(launches["silu_mul"] >= iters * layers,
+          f"{name}: silu_mul launched {launches['silu_mul']} times over "
+          f"{iters} decode iterations")
 
 
 def emit(phase: str, **fields) -> None:
@@ -479,7 +492,8 @@ def phase_build(ops):
     for src, kernel in (("paged_attention", "prefill_wgmma_kernel"),
                         ("paged_decode", "decode_cluster_kernel"),
                         ("flash_attention", "flash_wgmma_kernel"),
-                        ("ssd_wgmma", ""), ("step_score", "score_kernel")):
+                        ("ssd_wgmma", ""), ("step_score", "score_kernel"),
+                        ("decode_glue", "")):
         for name, row in table[src].items():
             if kernel in name:
                 check(row["spill_bytes"] == 0,
@@ -777,7 +791,149 @@ def check_ssd(sd, g, errs, N, shapes, key):
         del x, dt, Bm, Cm, padded, y, yp
 
 
-def phase_kernels(pa, ss, fa, sd, kvq, smd):
+# the decode glue's kernels (csrc/decode_glue.cu) at the two STEP cells'
+# decode shapes over 64 lanes: qwen3-4b-thinking (D 2560, 32 query heads
+# over 8 of 128, qk-norm, SwiGLU over F 9728) and mixtral-8x7b (D 4096, no
+# qk-norm, the MoE's writer, the expert gate over 8 experts x 64 slots x
+# F 14336); RoPE theta 1e6 in both
+GLUE = {"qwen3": dict(D=2560, H=32, KVH=8, qk_norm=True, writer=False,
+                      gate=(64, 9728)),
+        "mixtral": dict(D=4096, H=32, KVH=8, qk_norm=False, writer=True,
+                        gate=(8, 64, 14336))}
+GLUE_B, GLUE_HD, GLUE_PAGE, GLUE_WINDOW = 64, 128, 16, 512
+GLUE_EPS, GLUE_THETA = 1e-6, 1e6
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps: the steps between the two bit patterns."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)   # order-preserving
+    return (key(a) - key(b)).abs()
+
+
+def rope_bound(want):
+    """What a one-ulp difference in the qk-norm may become through RoPE:
+    one bf16 ulp of the output plus one of each of the rotation's two
+    inputs (whose pair has the outputs' length), for ``want`` [..., hd]."""
+    w = want.float()
+    half = w.shape[-1] // 2
+    r = torch.sqrt(w[..., :half] ** 2 + w[..., half:] ** 2)
+    return 2.0 ** -7 * (w.abs() + 2 * torch.cat([r, r], dim=-1))
+
+
+def glue_inputs(g, layers, spec):
+    """One decode layer's glue operands at a ``GLUE`` shape: the residual
+    stream and its update, a norm weight, the q/k/v products' outputs,
+    the qk-norm weights, positions 0..1099 over the 512-slot window (so
+    most slots wrap), block tables over a shuffled pool of 64 x 32 pages
+    with lanes 16..23 frozen on the scratch block 0, the MoE's writer,
+    the RoPE table, and the gate's operands."""
+    B, hd, bs = GLUE_B, GLUE_HD, GLUE_PAGE
+    bp = GLUE_WINDOW // bs
+    nb = B * bp + 1
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    bt = (torch.randperm(nb - 1, generator=g, device="cuda") + 1
+          ).reshape(B, bp).to(torch.int32)
+    bt[16:24] = 0
+    pos = torch.randint(0, 1100, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos[0] = 0   # RoPE is the identity there
+    D, H, KVH = spec["D"], spec["H"], spec["KVH"]
+    return dict(
+        h=rn(B, D), delta=rn(B, D, scale=0.5), w=rn(D, scale=0.1) + 1,
+        q=rn(B, H * hd, scale=2), k=rn(B, KVH * hd, scale=2),
+        v=rn(B, KVH * hd),
+        norms=((rn(hd, scale=0.1) + 1, rn(hd, scale=0.1) + 1)
+               if spec["qk_norm"] else (None, None)),
+        positions=pos, block_tables=bt,
+        pools=[rn(nb, bs, KVH, hd) for _ in range(2)],
+        writer=(layers.last_writer(bt, pos, GLUE_WINDOW, bs)
+                if spec["writer"] else None),
+        table=None, gate=rn(*spec["gate"], scale=4), up=rn(*spec["gate"]))
+
+
+def prologue_args(gl, x, pools, lens=None):
+    """``attn_prologue``'s arguments for ``glue_inputs``' operands."""
+    if x["table"] is None:
+        x["table"] = gl.rope_table(GLUE_HD, GLUE_THETA, "cuda")
+    return (x["q"], x["k"], x["v"], *x["norms"], GLUE_EPS, x["positions"],
+            x["table"], x["block_tables"], GLUE_WINDOW, pools[0], pools[1],
+            x["writer"], lens)
+
+
+def check_glue(gl, layers, g, errs):
+    """Each glue kernel against its plain version (``kernels/
+    decode_glue.py``, the chain's own ops) at both ``GLUE`` shapes:
+    ``silu_mul``, the residual sum, the attended lengths and the V write
+    bit for bit, RoPE too without qk-norm; a normed value within one bf16
+    ulp (the norm sums its squares in another order than torch), carried
+    through RoPE within :func:`rope_bound`. Every kernel must launch.
+    Returns the share of values apart, per kernel and shape."""
+    before = dict(gl.LAUNCHES)
+    shares = {}
+    for name, spec in GLUE.items():
+        x = glue_inputs(g, layers, spec)
+        err, apart = 0.0, 0.0
+        for delta in (x["delta"], None):   # None: layer 0's ln1
+            h2, y = gl.add_rms_norm(x["h"], delta, x["w"], GLUE_EPS)
+            wh, wy = gl.add_rms_norm_plain(x["h"], delta, x["w"], GLUE_EPS)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(y, wy)
+            check(torch.equal(h2, wh), f"add_rms_norm {name}: the residual "
+                  f"sum differs from h + delta")
+            check(int(ulps.max()) <= 1, f"add_rms_norm {name}: the norm "
+                  f"{int(ulps.max())} bf16 ulps from the plain version's")
+            err = max(err, (y.float() - wy.float()).abs().max().item())
+            apart = max(apart, (ulps > 0).float().mean().item())
+        errs[f"add_rms_norm_{name}"] = err
+        shares[f"add_rms_norm_{name}"] = apart
+
+        pools = [p.clone() for p in x["pools"]]
+        want = [p.clone() for p in x["pools"]]
+        lens = torch.full((GLUE_B,), -1, dtype=torch.int32, device="cuda")
+        want_lens = lens.clone()
+        q = gl.attn_prologue(*prologue_args(gl, x, pools, lens))
+        wq = gl.attn_prologue_plain(*prologue_args(gl, x, want, want_lens))
+        torch.cuda.synchronize()
+        # without a writer the frozen lanes race on the scratch block 0,
+        # on either side: its slots are left out
+        rows = slice(None) if spec["writer"] else slice(1, None)
+        check(torch.equal(lens, want_lens),
+              f"attn_prologue {name}: attended lengths differ")
+        check(torch.equal(pools[1][rows], want[1][rows]),
+              f"attn_prologue {name}: the V write differs")
+        err, apart = 0.0, 0.0
+        for what, got, ref in (("q", q, wq),
+                               ("K", pools[0][rows], want[0][rows])):
+            diff = (got.float() - ref.float()).abs()
+            if spec["qk_norm"]:
+                check(bool((diff <= rope_bound(ref)).all()),
+                      f"attn_prologue {name}: {what} beyond one ulp of the "
+                      f"norm carried through RoPE")
+            else:
+                check(torch.equal(got, ref), f"attn_prologue {name}: {what}"
+                      f" differs (no qk-norm: bit for bit)")
+            err = max(err, diff.max().item())
+            apart = max(apart, (diff > 0).float().mean().item())
+        errs[f"attn_prologue_{name}"] = err
+        shares[f"attn_prologue_{name}"] = apart
+
+        act = gl.silu_mul(x["gate"], x["up"])
+        check(torch.equal(act, gl.silu_mul_plain(x["gate"], x["up"])),
+              f"silu_mul {name}: differs from silu(g) * u")
+        errs[f"silu_mul_{name}"] = 0.0
+    moved = {k: gl.LAUNCHES[k] - before[k] for k in before}
+    check(moved == {"add_rms_norm": 4, "attn_prologue": 2, "silu_mul": 2},
+          f"kernels: glue launches {moved}")
+    return shares
+
+
+def phase_kernels(pa, ss, fa, sd, kvq, smd, gl, layers):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
     before = dict(pa.LAUNCHES)
@@ -869,6 +1025,7 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
               "ssd_scan_zamba2")
     check_ssm_decode(smd, g, errs)
     check_ssm_decode(smd, g, errs, N=64, key="ssm_decode_zamba2")
+    glue = check_glue(gl, layers, g, errs)
     # the prefill face's three kernels each ran: wgmma (bf16 queries at hd
     # 64/128), mma.sync (hd 80), f32; over float and int8/fp8 pools
     prefill = {k: pa.LAUNCHES[k] - before[k]
@@ -891,6 +1048,7 @@ def phase_kernels(pa, ss, fa, sd, kvq, smd):
           f"kernels: a decode kernel never ran: {decode}")
     emit("kernels", max_abs_err=errs, decode_launches=decode,
          prefill_launches=prefill, flash_launches=flash,
+         glue_share_apart=glue,
          tolerances={"bf16": BF16_TOL, "f32": F32_TOL, "score": SCORE_TOL,
                      "ssd": SSD_TOL})
     return errs
@@ -1184,12 +1342,12 @@ def record_moe_drops(L, lanes, layers):
     Returns (the records, a function that undoes the wrap)."""
     records, inner = [], L._moe_groups
 
-    def recording(pe, xg, sel, w, E, capacity):
+    def recording(pe, xg, sel, w, E, capacity, **kw):
         if (len(records) < layers and sel.shape[0] * sel.shape[1] == lanes
                 and not torch.cuda.is_current_stream_capturing()):
             keep = L.moe_queue(sel, E, capacity)[2]
             records.append((keep.reshape(lanes, -1), capacity))
-        return inner(pe, xg, sel, w, E, capacity)
+        return inner(pe, xg, sel, w, E, capacity, **kw)
 
     L._moe_groups = recording
     return records, lambda: setattr(L, "_moe_groups", inner)
@@ -2498,7 +2656,44 @@ def time_score(ss, g, B, D):
         flops=2 * B * D * Hd + 4 * B * Hd, dtype=torch.float32)
 
 
-def phase_times(pa, ss, fa, sd, kvq, smd):
+def time_glue(gl, layers, g, name, kernel):
+    """A glue kernel at a ``GLUE`` shape, beside its plain version (the
+    chain's ops, launch by launch). Bytes: each operand read and each
+    output written once (the prologue's K/V writes counted for every
+    lane, its tables, positions, writer and lengths at 4 bytes a lane)."""
+    spec = GLUE[name]
+    x = glue_inputs(g, layers, spec)
+    B, D, hd = GLUE_B, spec["D"], GLUE_HD
+    H, KVH = spec["H"], spec["KVH"]
+    lens = torch.empty((B,), dtype=torch.int32, device="cuda")
+    if kernel == "add_rms_norm":
+        run = (lambda: gl.add_rms_norm(x["h"], x["delta"], x["w"], GLUE_EPS),
+               lambda: gl.add_rms_norm_plain(x["h"], x["delta"], x["w"],
+                                             GLUE_EPS))
+        shape = f"B={B} D={D}, the residual add and the norm"
+        nbytes, flops = (4 * B * D + D) * 2, 5 * B * D
+    elif kernel == "attn_prologue":
+        run = (lambda: gl.attn_prologue(*prologue_args(gl, x, x["pools"],
+                                                       lens)),
+               lambda: gl.attn_prologue_plain(*prologue_args(
+                   gl, x, x["pools"], lens)))
+        shape = (f"B={B} H={H} KVH={KVH} hd={hd} qk_norm={spec['qk_norm']} "
+                 f"writer={spec['writer']} window={GLUE_WINDOW}")
+        nbytes = (2 * B * (2 * H + 4 * KVH) * hd + 4 * hd + 2 * hd
+                  + 4 * B * (3 + spec["writer"]))
+        flops = 16 * B * (H + KVH) * hd
+    else:
+        run = (lambda: gl.silu_mul(x["gate"], x["up"]),
+               lambda: gl.silu_mul_plain(x["gate"], x["up"]))
+        n = x["gate"].numel()
+        shape = "x".join(map(str, spec["gate"])) + ", silu(g) * u"
+        nbytes, flops = 3 * 2 * n, 5 * n
+    return dict(ms=time_cuda(run[0]), plain_ms=time_cuda(run[1]),
+                library_ms=None, shape=shape, bytes=nbytes, flops=flops,
+                dtype=torch.bfloat16)
+
+
+def phase_times(pa, ss, fa, sd, kvq, smd, gl, layers):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf = torch.bfloat16
     # the floor every row reads against: a launch that does nothing
@@ -2603,6 +2798,15 @@ def phase_times(pa, ss, fa, sd, kvq, smd):
     rows["ssd_scan_zamba2"] = time_ssd(sd, g, 64)
     rows["ssm_decode"] = time_ssm_decode(smd, g, 128)
     rows["ssm_decode_zamba2"] = time_ssm_decode(smd, g, 64)
+
+    # the decode glue at both STEP cells' shapes: qwen3's rows, then
+    # mixtral's (its prologue under the writer) and its expert gate
+    for kernel in ("add_rms_norm", "attn_prologue", "silu_mul"):
+        rows[kernel] = time_glue(gl, layers, g, "qwen3", kernel)
+        tag = "expert" if kernel == "silu_mul" else "mixtral"
+        rows[f"{kernel}_{tag}"] = time_glue(gl, layers, g, "mixtral",
+                                            kernel)
+    torch.cuda.empty_cache()
 
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
@@ -3645,6 +3849,12 @@ def phase_serve_mesh(rt):
                 check(lt["decode_graph_captures"] == 0
                       and lt["step_score"] == 0,
                       f"{name}: a graph or the fused scorer on a mesh")
+                # the fused glue on one rank in bf16 (as the single
+                # engine), the chain where ranks split the work or in f32
+                glue = lt["add_rms_norm"] + lt["attn_prologue"]
+                check((glue > 0) == (world == 1 and job == "full"),
+                      f"{name}: decode glue launches {glue} on the wrong "
+                      f"route")
                 check(torch.equal(torch.isfinite(got["logits"]), live),
                       f"{name}: non-finite logits")
                 logit_err = (got["logits"] - want["logits"])[live].abs() \
@@ -3705,6 +3915,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     rt = runtime()
+    from repro_torch.kernels import decode_glue as gl
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
@@ -3718,7 +3929,7 @@ def main() -> int:
     info = phase_device()
     dryrun_proc = start_dryrun()
     phase_build(ops)
-    errs = phase_kernels(pa, ss, fa, sd, kvq, smd)
+    errs = phase_kernels(pa, ss, fa, sd, kvq, smd, gl, rt["layers"])
     cfg, params, scorer, n_params, init_s = full_model(rt)
     emit("model", name=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=n_params, init_s=init_s)
@@ -3734,7 +3945,7 @@ def main() -> int:
     phase_serve_sampled(rt, ops, cfg, params, scorer)
     forward = phase_forward_kernel(rt, ops, cfg, params)
     phase_train(rt, ops, cfg, params)
-    times = phase_times(pa, ss, fa, sd, kvq, smd)
+    times = phase_times(pa, ss, fa, sd, kvq, smd, gl, rt["layers"])
     phase_step(rt, cfg, params)
     phase_launch_steps(rt, ops, cfg, params)
     phase_roofline_decode(rt, cfg, params)
@@ -3908,6 +4119,25 @@ def main() -> int:
             "none (XLA fusion of src/repro/models/layers.py:1120)",
             "ssm_decode_zamba2_bfloat16", serve_hyb["launches"]["ssm_decode"]),
     }
+    # the decode glue: no Pallas counterpart either (XLA fuses the norms,
+    # RoPE, the paged K/V write and the gate inside the jitted horizon);
+    # qwen3's launches on serve and batched, mixtral's on its two phases
+    glue_src = src + "decode_glue.cu"
+    for kernel, replaces in (
+            ("add_rms_norm", "none (XLA fusion of the residual adds and "
+                             "src/repro/models/layers.py:23)"),
+            ("attn_prologue", "none (XLA fusion in "
+                              "src/repro/models/layers.py:352)"),
+            ("silu_mul", "none (XLA fusion of "
+                         "src/repro/models/layers.py:68 and :930)")):
+        moe = "silu_mul_expert" if kernel == "silu_mul" else \
+            f"{kernel}_mixtral"
+        meta[kernel] = (glue_src, replaces, f"{kernel}_qwen3",
+                        serve["launches"][kernel]
+                        + batched["launches"][kernel])
+        meta[moe] = (glue_src, replaces, f"{kernel}_mixtral",
+                     serve_moe["launches"][kernel]
+                     + batched_moe["launches"][kernel])
     # the serving launcher's model (H 4, KVH 2, hd 64, D 256) on
     # launch_serve's runs
     lt = launch["launches"]

@@ -12,6 +12,10 @@ the counterparts of the JAX package's Pallas kernels.
   step_score              — fused STEP scorer MLP over decode hiddens
   ssm_decode              — Mamba2's one-token state update (no Pallas
                             counterpart: the JAX package leaves it to XLA)
+  add_rms_norm, attn_prologue, silu_mul
+                          — the decode layer's elementwise glue between
+                            its products (decode_glue; no Pallas
+                            counterpart either: XLA fuses it)
 
 ``ops`` also exposes ``paged_attention[_prefill]_sharded`` — the
 routes mesh engines use (a rank's lanes on "data", its pool KV heads on

@@ -15,11 +15,14 @@ import contextlib
 from typing import Dict
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_glue as _glue
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import ssm_decode as _ssm
 from repro_torch.kernels import step_score as _score
+from repro_torch.kernels.decode_glue import (  # noqa: F401
+    add_rms_norm, attn_prologue, silu_mul)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.paged_attention import (  # noqa: F401
     paged_attention, paged_attention_prefill)
@@ -29,7 +32,8 @@ from repro_torch.kernels.step_score import step_score  # noqa: F401
 
 # CUDA sources under csrc/, one shared library each
 SOURCES = ("paged_attention", "paged_decode", "step_score",
-           "flash_attention", "ssd_scan", "ssd_wgmma", "ssm_decode")
+           "flash_attention", "ssd_scan", "ssd_wgmma", "ssm_decode",
+           "decode_glue")
 
 # public name -> (the wrapper module's LAUNCHES dict, its key)
 _KERNELS = {
@@ -52,6 +56,9 @@ _KERNELS = {
     "ssd_scan_wgmma": (_ssd.LAUNCHES, "ssd_scan_wgmma"),
     "ssd_scan_tile": (_ssd.LAUNCHES, "ssd_scan_tile"),
     "ssm_decode": (_ssm.LAUNCHES, "ssm_decode"),
+    "add_rms_norm": (_glue.LAUNCHES, "add_rms_norm"),
+    "attn_prologue": (_glue.LAUNCHES, "attn_prologue"),
+    "silu_mul": (_glue.LAUNCHES, "silu_mul"),
 }
 # decode-horizon graphs (serving/cuda_graph.py): captures, and replays,
 # each of which adds its capture's kernel launches to the counts above

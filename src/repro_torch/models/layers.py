@@ -26,11 +26,14 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_glue as kglue
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kv_quant as KQ
 from repro_torch.kernels.paged_attention import (
     check_index, masked_softmax_pv, paged_attention_plain,
     gather_pages, paged_attention_prefill_plain)
+# RMSNorm and RoPE's rotation live beside the kernels that fuse them
+from repro_torch.kernels.decode_glue import apply_rope, rms_norm  # noqa: F401
 # the one-token Mamba2 steps live beside their fused kernel
 from repro_torch.kernels.ssm_decode import (  # noqa: F401
     causal_conv1d_step, ssd_decode_step, ssm_decay, ssm_decode_plain)
@@ -135,38 +138,31 @@ def constrain(x, placements):
 # norms / rope
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
-
-
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
     """positions [...]; returns cos/sin [..., dim/2] in f32."""
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
-    inv_freq = 1.0 / (theta ** exps)
+    inv_freq = kglue.rope_inv_freq(dim, theta, positions.device)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """x [..., H, hd]; cos/sin broadcastable [..., 1, hd/2]."""
-    half = x.shape[-1] // 2
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # feed-forward
 # ---------------------------------------------------------------------------
 
+def silu_gate(g: torch.Tensor, u: torch.Tensor,
+              use_kernel: bool = False) -> torch.Tensor:
+    """SwiGLU's gate: silu(g) in f32, rounded to g's dtype, times u. Under
+    ``use_kernel``, the ``silu_mul`` kernel (the same arithmetic, one
+    launch) where it takes the operands (``decode_glue.silu_mul_fits``:
+    bf16 on a card, no gradient); else the ops."""
+    if use_kernel and kglue.silu_mul_fits(g, u):
+        return kops.silu_mul(g, u)
+    return kglue.silu_mul_plain(g, u)
+
+
 def swiglu(p: dict, x: torch.Tensor,
-           tp: Optional[TensorParallel] = None) -> torch.Tensor:
+           tp: Optional[TensorParallel] = None,
+           use_kernel: bool = False) -> torch.Tensor:
     """p: {w_gate [D,F], w_up [D,F], w_down [F,D]}
 
     ``tp`` (serving mesh): the column-parallel gate/up outputs are this
@@ -174,9 +170,7 @@ def swiglu(p: dict, x: torch.Tensor,
     before the whole ``w_down``, so the contraction over F is the
     single-device one (a split contraction would sum partial products
     across ranks, in another rounding)."""
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    act = F.silu(g.float()).to(x.dtype) * u
+    act = silu_gate(x @ p["w_gate"], x @ p["w_up"], use_kernel)
     if tp is not None:
         act = tp.full_cols(act, p["w_down"].shape[-2])
     return act @ p["w_down"]
@@ -231,11 +225,12 @@ def moe_queue(sel: torch.Tensor, E: int, capacity: int):
 
 def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
                 w: torch.Tensor, E: int, capacity: int,
-                ex_in_spec=None) -> torch.Tensor:
+                ex_in_spec=None, use_kernel: bool = False) -> torch.Tensor:
     """Dispatch, expert SwiGLU and combine for groups ``xg [G, gs, D]``
     with their choices ``sel``/``w [G, gs, K]`` (:func:`moe_queue` drops
     the pairs past ``capacity``). ``ex_in_spec``: the placements of the
-    dispatched inputs [G, E, C, D] (:func:`constrain`). Returns
+    dispatched inputs [G, E, C, D] (:func:`constrain`); ``use_kernel``:
+    the expert gate through :func:`silu_gate`'s kernel. Returns
     [G, gs, D]."""
     G, gs, K = sel.shape
     D = xg.shape[-1]
@@ -249,8 +244,7 @@ def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
     ex_in = dispatch.reshape(G, gs, E * capacity).transpose(1, 2) @ xg
     ex_in = constrain(ex_in.reshape(G, E, capacity, D), ex_in_spec)
     xe = ex_in.transpose(0, 1).reshape(E, G * capacity, D)
-    act = F.silu((xe @ pe["w_gate"]).float()).to(xg.dtype) \
-        * (xe @ pe["w_up"])
+    act = silu_gate(xe @ pe["w_gate"], xe @ pe["w_up"], use_kernel)
     ex_out = (act @ pe["w_down"]).reshape(E, G, capacity, D).transpose(0, 1)
     return combine.reshape(G, gs, E * capacity) \
         @ ex_out.reshape(G, E * capacity, D)
@@ -259,7 +253,7 @@ def _moe_groups(pe: dict, xg: torch.Tensor, sel: torch.Tensor,
 def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
               capacity_factor: Optional[float] = None,
               expert_weight_spec: Optional[dict] = None,
-              ex_in_spec=None):
+              ex_in_spec=None, use_kernel: bool = False):
     """Top-k MoE with optional shared experts and group-wise capacity
     dispatch (GShard/Switch semantics), as ``repro/models/layers.py``.
 
@@ -277,7 +271,8 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     the expert weights out before the group loop (a weight sharded for
     FSDP is then gathered once per layer, not per chunk of groups);
     ``ex_in_spec`` lays out the dispatched inputs (see
-    :func:`constrain`)."""
+    :func:`constrain`). ``use_kernel`` runs the expert and shared gates
+    through :func:`silu_gate`'s kernel where it fits."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -302,8 +297,11 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     capacity = max(1, int(capacity_factor * gs * K / E))
     args = (xt.reshape(G, gs, D), sel.reshape(G, gs, K),
             weights.reshape(G, gs, K))
-    # the hook only where given: ``_moe_groups``' positional call stays
+    # the hook and the kernel only where given: ``_moe_groups``' positional
+    # call stays
     extra = {} if ex_in_spec is None else {"ex_in_spec": ex_in_spec}
+    if use_kernel:
+        extra["use_kernel"] = True
     chunk_groups = max(1, (MOE_CHUNK_TOKENS + gs - 1) // gs)
     if G > chunk_groups:
         while G % chunk_groups:
@@ -318,7 +316,7 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = _moe_groups(experts, *args, E, capacity, **extra)
     out = out.reshape(T, D)
     if cfg.num_shared_experts:
-        out = out + swiglu(p["shared"], xt)
+        out = out + swiglu(p["shared"], xt, use_kernel=use_kernel)
     return out.reshape(B, S, D), aux_loss
 
 
@@ -629,6 +627,55 @@ def gqa_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if tp is not None:
         out = tp.full_cols(out, p["wo"].shape[-2])
     return out @ p["wo"]
+
+
+def glue_route(cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               use_kernel: bool,
+               tp: Optional[TensorParallel] = None) -> str:
+    """How a decode step runs the glue between its layers' products:
+    "fused" through the kernels of ``kernels/decode_glue.py`` (the residual
+    add with the next norm, the attention prologue; SwiGLU's gate takes
+    ``silu_mul`` wherever :func:`silu_gate` can) or "chain", the PyTorch
+    ops. Fused under ``use_kernel`` for a bf16 batch ``x`` on a card over
+    a bf16 pool (no int8 / fp8 scales), with no mesh or a mesh of one rank
+    (whose gathers are no-ops), on the dense or MoE GQA stack (not the
+    ssm, the hybrid, MLA or the encoder-decoder) at head dim 64, 80 or
+    128; every other case keeps the chain."""
+    pool = cache.get("k_pool")
+    split = tp is not None and (tp.model_n > 1 or tp.data_n > 1)
+    fused = (use_kernel and x.is_cuda and x.dtype == torch.bfloat16
+             and not split
+             and cfg.arch_type not in ("ssm", "hybrid") and not cfg.use_mla
+             and not cfg.is_encoder_decoder and pool is not None
+             and pool.dtype == torch.bfloat16 and "k_scale" not in cache
+             and cfg.head_dim in kglue.HEAD_DIMS)
+    return "fused" if fused else "chain"
+
+
+def gqa_attention_decode_fused(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                               positions: torch.Tensor, cache: dict,
+                               writer: Optional[torch.Tensor],
+                               lens: torch.Tensor,
+                               write_lens: bool) -> torch.Tensor:
+    """:func:`gqa_attention_decode` on the fused route (:func:`glue_route`):
+    x [B, D] (ln1's output); the products, then one ``attn_prologue``
+    launch (qk-norm, RoPE, the K/V write into the layer's pool slices,
+    under ``writer`` by the lanes that own their slot), the paged
+    attention over ``lens`` [B] int32, which the prologue fills where
+    ``write_lens`` (once an iteration: every layer attends over the same
+    lengths), and ``wo``. Returns [B, D]."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    norms = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+    q = kops.attn_prologue(
+        x @ p["wq"], x @ p["wk"], x @ p["wv"], *norms, cfg.norm_eps,
+        positions, kglue.rope_table(hd, cfg.rope_theta, x.device),
+        cache["block_tables"], cache["window_len"], cache["k_pool"],
+        cache["v_pool"], writer, lens if write_lens else None)
+    out = paged_attention_decode(
+        cache["k_pool"], cache["v_pool"], q, cache["block_tables"], lens,
+        scale=1.0 / math.sqrt(hd), use_kernel=cache.get("use_kernel", False))
+    return out.reshape(B, -1) @ p["wo"]
 
 
 def gqa_attention_prefill_chunk(p: dict, cfg: ModelConfig, x: torch.Tensor,

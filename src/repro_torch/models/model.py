@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import kv_quant
 from repro_torch.models import layers as L
 
@@ -123,18 +124,20 @@ def _logits(params, cfg, h, tp: Optional[L.TensorParallel] = None):
 
 def _ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor,
          tp: Optional[L.TensorParallel] = None,
-         kv_specs: Optional[dict] = None, ex_in: bool = False):
+         kv_specs: Optional[dict] = None, ex_in: bool = False,
+         use_kernel: bool = False):
     """A decoder layer's feed-forward: (the MoE's output and aux loss), or
     (the SwiGLU's output, None). An MoE takes ``kv_specs["moe_experts"]``
     for its expert weights and, with ``ex_in`` (decode),
-    ``kv_specs["moe_ex_in"]`` for its dispatched inputs."""
+    ``kv_specs["moe_ex_in"]`` for its dispatched inputs. ``use_kernel``:
+    the gate through ``layers.silu_gate``'s kernel where it fits."""
     if cfg.uses_moe:
         specs = kv_specs or {}
         return L.moe_layer(lp["moe"], cfg, x,
                            expert_weight_spec=specs.get("moe_experts"),
                            ex_in_spec=specs.get("moe_ex_in") if ex_in
-                           else None)
-    return L.swiglu(lp["mlp"], x, tp), None
+                           else None, use_kernel=use_kernel)
+    return L.swiglu(lp["mlp"], x, tp, use_kernel), None
 
 
 def _kv_hook(kv_specs: Optional[dict], key: str, x):
@@ -243,7 +246,7 @@ def _attn_block_full(lp: dict, cfg: ModelConfig, h: torch.Tensor,
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             *L.cross_kv(lp["cross"], cfg, enc_out))
     m, aux = _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp,
-                  kv_specs)
+                  kv_specs, use_kernel=use_kernel)
     return L.constrain(h + m, act_spec), kv, aux
 
 
@@ -433,6 +436,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if tp is not None:
         tokens = tokens[tp.lanes(tokens.shape[0])]
     h = _embed(params, cfg, tokens, tp)  # [B, 1, D]
+    hidden = None   # the final norm's output, where a stack makes it
     if cfg.arch_type == "ssm":
         for l in range(cfg.num_layers):
             h = _mamba_decode(_layer(params, l), cfg, h, cache, l,
@@ -458,14 +462,44 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         writer = (L.last_writer(cache["block_tables"], positions, window_len,
                                 cfg.kv_block_size)
                   if cfg.uses_moe else None)
-        for l in range(cfg.num_layers):
-            h = _attn_decode(_layer(params, l), cfg, h, positions, cache, l,
-                             window_len, use_kernel, writer, tp)
-    hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
+        if L.glue_route(cfg, h, cache, use_kernel, tp) == "fused":
+            hidden = _decode_fused(params, cfg, h[:, 0], positions, cache,
+                                   window_len, use_kernel, writer)
+        else:
+            for l in range(cfg.num_layers):
+                h = _attn_decode(_layer(params, l), cfg, h, positions, cache,
+                                 l, window_len, use_kernel, writer, tp)
+    if hidden is None:
+        hidden = L.rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, hidden, tp)
     if tp is not None:
         logits = tp.gather_data(logits)
     return {"logits": logits, "hidden": hidden, "cache": dict(cache)}
+
+
+def _decode_fused(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                  positions: torch.Tensor, cache: dict, window_len: int,
+                  use_kernel: bool,
+                  writer: Optional[torch.Tensor]) -> torch.Tensor:
+    """The dense / MoE stack's layers on the fused glue
+    (``layers.glue_route``): each residual add runs with the norm after it
+    (``add_rms_norm``: ln1, ln2, then the next layer's ln1 or the final
+    norm), the attention through ``layers.gqa_attention_decode_fused``.
+    h [B, D] is the embedding; returns the final norm's output [B, D]."""
+    lens = torch.empty((h.shape[0],), dtype=torch.int32, device=h.device)
+    delta = None
+    for l in range(cfg.num_layers):
+        lp = _layer(params, l)
+        layer_cache = {"block_tables": cache["block_tables"],
+                       "window_len": window_len, "use_kernel": use_kernel,
+                       "k_pool": cache["k_pool"][l],
+                       "v_pool": cache["v_pool"][l]}
+        h, x = kops.add_rms_norm(h, delta, lp["ln1"], cfg.norm_eps)
+        a = L.gqa_attention_decode_fused(lp["attn"], cfg, x, positions,
+                                         layer_cache, writer, lens, l == 0)
+        h, x = kops.add_rms_norm(h, a, lp["ln2"], cfg.norm_eps)
+        delta = _ffn(lp, cfg, x[:, None], use_kernel=use_kernel)[0][:, 0]
+    return kops.add_rms_norm(h, delta, params["final_norm"], cfg.norm_eps)[1]
 
 
 def _mamba_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
@@ -503,7 +537,8 @@ def _attn_decode(lp: dict, cfg: ModelConfig, h: torch.Tensor,
         h = h + L.cross_attention(
             lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
             cache["cross_k"][idx], cache["cross_v"][idx])
-    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)[0]
+    return h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp,
+                    use_kernel=use_kernel)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -618,7 +653,8 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             k_scale=cache["k_scale"][l] if quant else None,
             v_scale=cache["v_scale"][l] if quant else None, tp=tp)
         h = h + a
-        h = h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp)[0]
+        h = h + _ffn(lp, cfg, L.rms_norm(h, lp["ln2"], cfg.norm_eps), tp,
+                     use_kernel=use_kernel)[0]
     hidden = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return {"logits": _logits(params, cfg, hidden, tp), "hidden": hidden,
             "cache": dict(cache)}

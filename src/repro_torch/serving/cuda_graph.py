@@ -46,7 +46,9 @@ On a CPU engine the same class stages inputs and outputs the same way but
 calls the function itself: the CPU has no graph.
 
 With the engine's tracer on (``serving/tracing.py``), a capture is a
-``capture`` span (its seconds are ``capture_s``), and each call a
+``capture`` span (its seconds are ``capture_s``; its ``launches``, the
+kernel launches it recorded, show which route the graph's decode glue
+took: ``models/layers.py::glue_route``), and each call a
 ``launch`` span around the input copies and the replay, with the device's
 ``decode`` span inside it.
 """
@@ -175,5 +177,6 @@ class DecodeGraph:
         self.outputs = tuple(out[:N_OUTPUTS])
         t1 = time.perf_counter_ns()
         self.capture_s = (t1 - t0) / 1e9
-        tracer.add("capture", t0, t1, key=list(self.key))
+        tracer.add("capture", t0, t1, key=list(self.key),
+                   launches=dict(made))
         kops.GRAPHS["decode_graph_captures"] += 1

@@ -321,6 +321,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(gen):
                                    "flash_attention_f32_tc": 0,
                                    "ssd_scan": 0, "ssd_scan_wgmma": 0,
                                    "ssd_scan_tile": 0, "ssm_decode": 0,
+                                   "add_rms_norm": 0, "attn_prologue": 0,
+                                   "silu_mul": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}
 

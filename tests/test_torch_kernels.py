@@ -195,5 +195,7 @@ def test_cpu_wrappers_count_no_launch():
                                    "flash_attention_f32_tc": 0,
                                    "ssd_scan": 0, "ssd_scan_wgmma": 0,
                                    "ssd_scan_tile": 0, "ssm_decode": 0,
+                                   "add_rms_norm": 0, "attn_prologue": 0,
+                                   "silu_mul": 0,
                                    "decode_graph_replays": 0,
                                    "decode_graph_captures": 0}

@@ -429,9 +429,9 @@ def test_greedy_serve_matches_jax(setup, factor, monkeypatch):
     dropped = [0]
     groups = tl._moe_groups
 
-    def counting(pe, xg, sel, w, E, capacity):
+    def counting(pe, xg, sel, w, E, capacity, **kw):
         dropped[0] += int((~tl.moe_queue(sel, E, capacity)[2]).sum())
-        return groups(pe, xg, sel, w, E, capacity)
+        return groups(pe, xg, sel, w, E, capacity, **kw)
 
     monkeypatch.setattr(tl, "_moe_groups", counting)
     eng, tres = serve_torch(s, "step", s["prompts"], 4,

@@ -424,10 +424,10 @@ def _serve_counting_drops(s, kw, monkeypatch):
     phase = {"now": "other"}
     groups, forward = tl._moe_groups, te.forward_full
 
-    def counting(pe, xg, sel, w, E, capacity):
+    def counting(pe, xg, sel, w, E, capacity, **kw):
         dropped[phase["now"]] += int(
             (~tl.moe_queue(sel, E, capacity)[2]).sum())
-        return groups(pe, xg, sel, w, E, capacity)
+        return groups(pe, xg, sel, w, E, capacity, **kw)
 
     def one_shot(*args, **kwargs):
         phase["now"] = "one_shot"
